@@ -17,7 +17,7 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from jpeg_decoder_tpu import Decoder, PixelFormat
+from jpeg_decoder_jax import Decoder, PixelFormat
 
 
 def cmyk_to_rgb(px: np.ndarray) -> np.ndarray:

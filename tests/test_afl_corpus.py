@@ -14,9 +14,9 @@ import pathlib
 
 import pytest
 
-import jpeg_decoder_tpu.entropy.native as native_mod
-from jpeg_decoder_tpu import Decoder
-from jpeg_decoder_tpu.errors import JpegError
+import jpeg_decoder_jax.entropy.native as native_mod
+from jpeg_decoder_jax import Decoder
+from jpeg_decoder_jax.errors import JpegError
 
 AFL_IN = pathlib.Path("/root/reference/fuzz-afl/in")
 
@@ -41,15 +41,15 @@ def test_afl_corpus_native_and_oracle_agree():
     disagreements = []
     for path in CORPUS:
         data = path.read_bytes()
-        os.environ.pop("JPEG_TPU_DISABLE_NATIVE", None)
+        os.environ.pop("JPEG_JAX_DISABLE_NATIVE", None)
         native_mod.reset_native_cache()
         a = _decode(data)
-        os.environ["JPEG_TPU_DISABLE_NATIVE"] = "1"
+        os.environ["JPEG_JAX_DISABLE_NATIVE"] = "1"
         native_mod.reset_native_cache()
         try:
             b = _decode(data)
         finally:
-            os.environ.pop("JPEG_TPU_DISABLE_NATIVE", None)
+            os.environ.pop("JPEG_JAX_DISABLE_NATIVE", None)
             native_mod.reset_native_cache()
         if (a == "ok") != (b == "ok"):
             disagreements.append((path.name, a, b))
@@ -61,7 +61,7 @@ def test_afl_corpus_device_staging_survives():
     """The bits staging (prescan + pack) must accept-or-fallback on every
     AFL input without crashing; accepted streams already get store-level
     verification from tools/fuzz.py --device."""
-    from jpeg_decoder_tpu.models.stream import stage_host_bits
+    from jpeg_decoder_jax.models.stream import stage_host_bits
 
     for path in CORPUS:
         try:

@@ -16,8 +16,8 @@ import pytest
 
 from conftest import REFTEST_IMAGES, reftest_files
 
-from jpeg_decoder_tpu.entropy.native import get_native
-from jpeg_decoder_tpu.models import stream as stream_mod
+from jpeg_decoder_jax.entropy.native import get_native
+from jpeg_decoder_jax.models import stream as stream_mod
 
 pytestmark = pytest.mark.skipif(
     get_native() is None, reason="native entropy kernel unavailable")
@@ -26,7 +26,7 @@ LARGE = "/root/reference/benches/large_image.jpg"
 
 
 def _stage(path, anchored, monkeypatch):
-    monkeypatch.setenv("JPEG_TPU_ANCHORED", "1" if anchored else "0")
+    monkeypatch.setenv("JPEG_JAX_ANCHORED", "1" if anchored else "0")
     return stream_mod.stage_host(path)
 
 
@@ -84,7 +84,7 @@ def test_anchored_full_corpus_decode(monkeypatch):
     """Every reftest image decodes identically with the anchored gate forced
     on: eligible scans decode in parallel, everything else (progressive,
     lossless, DRI, tiny, malformed-adjacent) must fall back losslessly."""
-    monkeypatch.setenv("JPEG_TPU_ANCHORED", "1")
+    monkeypatch.setenv("JPEG_JAX_ANCHORED", "1")
     checked = 0
     for path in reftest_files():
         try:
@@ -93,9 +93,9 @@ def test_anchored_full_corpus_decode(monkeypatch):
             continue
         if isinstance(a, stream_mod.StagedLossless):
             continue  # lossless ships diffs, not prefix coefficients
-        monkeypatch.setenv("JPEG_TPU_ANCHORED", "0")
+        monkeypatch.setenv("JPEG_JAX_ANCHORED", "0")
         b = stream_mod.stage_host(str(path))
-        monkeypatch.setenv("JPEG_TPU_ANCHORED", "1")
+        monkeypatch.setenv("JPEG_JAX_ANCHORED", "1")
         assert np.array_equal(a.dc, b.dc), path
         assert np.array_equal(a.ac, b.ac), path
         assert _resid_set(a) == _resid_set(b), path

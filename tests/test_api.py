@@ -7,7 +7,7 @@ import pytest
 
 from conftest import REFTEST_IMAGES
 
-from jpeg_decoder_tpu import (CodingProcess, ColorTransform, Decoder,
+from jpeg_decoder_jax import (CodingProcess, ColorTransform, Decoder,
                               FormatError, IoError, JpegError, PixelFormat,
                               UnsupportedError)
 
@@ -49,7 +49,7 @@ def test_color_transform_none_is_planar_rows():
     the upsampled component rows back to back. Feeding those planes through
     the exact fixed-point YCbCr kernel must reproduce the standard decode
     bit-for-bit."""
-    from jpeg_decoder_tpu.ops.color import ycbcr_to_rgb
+    from jpeg_decoder_jax.ops.color import ycbcr_to_rgb
 
     d = Decoder(RGB)
     d.set_color_transform(ColorTransform.NONE)
@@ -110,20 +110,20 @@ def test_file_object_source():
 
 
 def test_oracle_fallback_matches_native():
-    """JPEG_TPU_DISABLE_NATIVE forces the pure-Python engines; output must be
+    """JPEG_JAX_DISABLE_NATIVE forces the pure-Python engines; output must be
     byte-identical (the CI matrix analog of the reference's
     platform_independent builds)."""
     import os
-    import jpeg_decoder_tpu.entropy.native as nm
+    import jpeg_decoder_jax.entropy.native as nm
 
     data = open(RGB, "rb").read()
     native = Decoder(data).decode()
-    os.environ["JPEG_TPU_DISABLE_NATIVE"] = "1"
+    os.environ["JPEG_JAX_DISABLE_NATIVE"] = "1"
     nm.reset_native_cache()
     try:
         oracle = Decoder(data).decode()
     finally:
-        os.environ.pop("JPEG_TPU_DISABLE_NATIVE")
+        os.environ.pop("JPEG_JAX_DISABLE_NATIVE")
         nm.reset_native_cache()
     assert native == oracle
 

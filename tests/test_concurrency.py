@@ -11,8 +11,8 @@ import concurrent.futures as cf
 
 from conftest import REFTEST_IMAGES
 
-from jpeg_decoder_tpu import Decoder
-from jpeg_decoder_tpu.models.stream import stage_host
+from jpeg_decoder_jax import Decoder
+from jpeg_decoder_jax.models.stream import stage_host
 
 FILES = ["rgb.jpg", "restarts.jpg", "mjpeg.jpg", "mozilla/jpg-progressive.jpg",
          "lossless/1/jpeg_lossless_sel1.jpg"]
@@ -55,8 +55,8 @@ def test_soak_mixed_corpus_bounded_memory():
     import random
 
     from conftest import reftest_files
-    from jpeg_decoder_tpu import JpegError
-    from jpeg_decoder_tpu.models.stream import _pool, stage_host
+    from jpeg_decoder_jax import JpegError
+    from jpeg_decoder_jax.models.stream import _pool, stage_host
 
     datas = []
     for p in reftest_files()[:20]:

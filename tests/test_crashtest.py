@@ -8,7 +8,7 @@ import pytest
 
 from conftest import CRASHTEST_IMAGES, crashtest_files
 
-from jpeg_decoder_tpu import Decoder, JpegError
+from jpeg_decoder_jax import Decoder, JpegError
 
 
 @pytest.mark.parametrize(

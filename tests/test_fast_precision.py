@@ -1,4 +1,4 @@
-"""Fast (fp32 MXU) precision mode must stay within the reference tolerance.
+"""Fast (f32 matmul IDCT) precision mode must stay within the reference tolerance.
 
 The reference ships non-bit-identical SIMD kernels by default with a
 `platform_independent` opt-out (`/root/reference/src/arch/mod.rs:13-57`); our
@@ -11,7 +11,7 @@ import pytest
 
 from conftest import REFTEST_IMAGES
 
-from jpeg_decoder_tpu import Decoder
+from jpeg_decoder_jax import Decoder
 from test_reftest import check_against_golden
 
 CASES = [

@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-from jpeg_decoder_tpu.ops.idct import (
+from jpeg_decoder_jax.ops.idct import (
     blocks_to_plane,
     choose_idct_size,
     dequantize_and_idct_blocks,
 )
-from jpeg_decoder_tpu.parser import Component, Dimensions, update_component_sizes
+from jpeg_decoder_jax.parser import Component, Dimensions, update_component_sizes
 
 
 def test_dequantize_and_idct_block_8x8():

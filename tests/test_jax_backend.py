@@ -1,7 +1,7 @@
 """The jitted JAX pipeline must be bit-identical to the numpy oracle.
 
-Runs on CPU (conftest pins jax_platforms=cpu); the same pipeline code is the
-TPU path. Covers every upsampler mode, progressive, restarts, CMYK, grayscale,
+Runs on CPU (conftest defaults JAX_PLATFORMS to cpu); the same pipeline code
+is the device path. Covers every upsampler mode, progressive, restarts, CMYK, grayscale,
 and scaled decode.
 """
 
@@ -9,7 +9,7 @@ import pytest
 
 from conftest import REFTEST_IMAGES
 
-from jpeg_decoder_tpu import Decoder
+from jpeg_decoder_jax import Decoder
 
 CASES = [
     "rgb.jpg",                          # 4:2:0 YCbCr (H2V2)
@@ -43,7 +43,7 @@ def test_batched_stream_matches_single():
     """Batched (vmapped) stream pipeline == per-image pipeline, incl. a
     mixed-geometry stream (forces group flushes)."""
     import jax.numpy as jnp
-    from jpeg_decoder_tpu.models.stream import DeviceStreamDecoder
+    from jpeg_decoder_jax.models.stream import DeviceStreamDecoder
 
     rgb = open(REFTEST_IMAGES / "rgb.jpg", "rb").read()
     gray = open(REFTEST_IMAGES / "grayscale_large.jpg", "rb").read()
@@ -59,7 +59,7 @@ def test_batched_stream_matches_single():
 def test_scaled_decode_through_stream():
     """Thumbnail decode (IDCT-domain scaling) through the streaming staging."""
     import jax.numpy as jnp
-    from jpeg_decoder_tpu.models.stream import stage_host, _compiled_prefix_pipeline
+    from jpeg_decoder_jax.models.stream import stage_host, _compiled_prefix_pipeline
 
     path = str(REFTEST_IMAGES / "rgb.jpg")
     d = Decoder(path, precision="fast")
@@ -75,7 +75,7 @@ def test_scaled_decode_through_stream():
 
 def test_stream_error_isolation():
     """Malformed inputs in a stream must not poison the batch (on_error='none')."""
-    from jpeg_decoder_tpu.models.stream import DeviceStreamDecoder
+    from jpeg_decoder_jax.models.stream import DeviceStreamDecoder
 
     good = open(REFTEST_IMAGES / "rgb.jpg", "rb").read()
     bad = b"\xff\xd8 definitely not a jpeg"
@@ -84,6 +84,6 @@ def test_stream_error_isolation():
     assert outs[1] is None
     assert outs[0] is not None and outs[2] is not None
     import pytest as _pytest
-    from jpeg_decoder_tpu import JpegError
+    from jpeg_decoder_jax import JpegError
     with _pytest.raises(JpegError):
         dec.decode_stream([good, bad], on_error="raise")

@@ -9,12 +9,12 @@ import pytest
 
 from conftest import REFTEST_IMAGES
 
-from jpeg_decoder_tpu.ops.predictors import (
+from jpeg_decoder_jax.ops.predictors import (
     device_supported,
     reconstruct_lossless,
     reconstruct_lossless_device,
 )
-from jpeg_decoder_tpu.parser import Predictor
+from jpeg_decoder_jax.parser import Predictor
 
 
 @pytest.mark.parametrize("predictor", [
@@ -52,8 +52,8 @@ def test_device_on_real_lossless_stream():
     """Real corpus: sel1 (predictor Ra) through the device formulation."""
     import jax.numpy as jnp
 
-    from jpeg_decoder_tpu.decoder import Decoder
-    from jpeg_decoder_tpu.entropy import decode_scan_lossless
+    from jpeg_decoder_jax.decoder import Decoder
+    from jpeg_decoder_jax.entropy import decode_scan_lossless
 
     path = str(REFTEST_IMAGES / "lossless" / "1" / "jpeg_lossless_sel1.jpg")
     d = Decoder(path)
@@ -71,7 +71,7 @@ def test_device_on_real_lossless_stream():
         captured["diffs"] = diffs
         captured["scan"] = scan
         captured["frame"] = frame
-        from jpeg_decoder_tpu.ops.predictors import reconstruct_lossless as rl
+        from jpeg_decoder_jax.ops.predictors import reconstruct_lossless as rl
         for pos, comp_i in enumerate(scan.component_indices):
             self._planes_u16[comp_i] = rl(
                 diffs[pos], scan.predictor_selection, scan.point_transform,
@@ -98,7 +98,7 @@ def test_device_on_real_lossless_stream():
 def test_wavefront_matches_oracle(predictor, pt):
     import jax
     import jax.numpy as jnp
-    from jpeg_decoder_tpu.ops.predictors import reconstruct_lossless_wavefront
+    from jpeg_decoder_jax.ops.predictors import reconstruct_lossless_wavefront
 
     rng = np.random.default_rng(hash((predictor, pt)) & 0xFFFF)
     diffs = rng.integers(-32768, 32769, (19, 23)).astype(np.int32)
@@ -119,5 +119,5 @@ def test_wavefront_matches_oracle(predictor, pt):
 ])
 def test_jax_backend_lossless_bit_exact(name):
     path = str(REFTEST_IMAGES / name)
-    from jpeg_decoder_tpu import Decoder
+    from jpeg_decoder_jax import Decoder
     assert Decoder(path, backend="jax").decode() == Decoder(path).decode()

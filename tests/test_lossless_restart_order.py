@@ -11,41 +11,14 @@ synthesizes exactly that stream and pins all three engines to the oracle.
 import numpy as np
 import pytest
 
-from jpeg_decoder_tpu import Decoder
-from jpeg_decoder_tpu.ops.predictors import (
+from jpeg_decoder_jax import Decoder
+from jpeg_decoder_jax.ops.predictors import (
     _reconstruct_ra,
     reconstruct_lossless,
     reconstruct_lossless_device,
 )
-from jpeg_decoder_tpu.parser import Predictor
-
-
-class _BitWriter:
-    """MSB-first bit accumulator with 0xFF00 stuffing and 1-fill alignment."""
-
-    def __init__(self):
-        self.out = bytearray()
-        self.acc = 0
-        self.nbits = 0
-
-    def put(self, value: int, nbits: int) -> None:
-        for i in range(nbits - 1, -1, -1):
-            self.acc = (self.acc << 1) | ((value >> i) & 1)
-            self.nbits += 1
-            if self.nbits == 8:
-                self.out.append(self.acc)
-                if self.acc == 0xFF:
-                    self.out.append(0x00)
-                self.acc = 0
-                self.nbits = 0
-
-    def align(self) -> None:
-        if self.nbits:
-            self.put((1 << (8 - self.nbits)) - 1, 8 - self.nbits)
-
-    def raw(self, data: bytes) -> None:
-        assert self.nbits == 0
-        self.out.extend(data)
+from jpeg_decoder_jax.parser import Predictor
+from jpeg_decoder_jax.testing.synth import BitWriter, encode_diff
 
 
 # Canonical DC table: 3 codes of length 2 (symbols 0,1,2), 2 of length 3 (3,4).
@@ -54,24 +27,12 @@ _DHT_SYMBOLS = [0, 1, 2, 3, 4]
 _CODES = {0: (0b00, 2), 1: (0b01, 2), 2: (0b10, 2), 3: (0b110, 3), 4: (0b111, 3)}
 
 
-def _encode_diff(w: _BitWriter, diff: int) -> None:
-    """SSSS category + F.12 extend bits (Annex H.1 DC coding)."""
-    mag = abs(diff)
-    cat = mag.bit_length()
-    assert cat <= 4
-    code, nbits = _CODES[cat]
-    w.put(code, nbits)
-    if cat:
-        bits = diff if diff >= 0 else diff + (1 << cat) - 1
-        w.put(bits, cat)
-
-
 def _build_lossless_jpeg(diffs: np.ndarray, dri: int, predictor: int = 1,
                          precision: int = 8, pt: int = 0) -> bytes:
     """Minimal single-component SOF3 stream: one diff per sample, RST between
     every `dri` samples (marker protocol per G.1.2.2 / decoder.rs:920-952)."""
     h, w = diffs.shape
-    bw = _BitWriter()
+    bw = BitWriter()
     bw.raw(b"\xff\xd8")  # SOI
     # DHT (class 0, id 0)
     payload = bytes([0x00] + _DHT_COUNTS + _DHT_SYMBOLS)
@@ -94,7 +55,7 @@ def _build_lossless_jpeg(diffs: np.ndarray, dri: int, predictor: int = 1,
             bw.raw(bytes([0xFF, 0xD0 + rst]))
             rst = (rst + 1) % 8
             since_restart = 0
-        _encode_diff(bw, int(diff))
+        encode_diff(bw, int(diff), _CODES)
         since_restart += 1
     bw.align()
     bw.raw(b"\xff\xd9")  # EOI

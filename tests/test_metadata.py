@@ -5,7 +5,7 @@ Port of `/root/reference/tests/lib.rs:34-170` using the reference's fixtures.
 
 from conftest import ICC_FIXTURES, REFTEST_IMAGES
 
-from jpeg_decoder_tpu import Decoder
+from jpeg_decoder_jax import Decoder
 
 
 def test_read_info_then_decode_matches():
@@ -87,7 +87,7 @@ def test_jfif_info_fields():
     """JFIF APP0 density fields (extension over the reference's detect-only
     handling, `/root/reference/src/parser.rs:618-632`)."""
     from conftest import REFTEST_IMAGES
-    from jpeg_decoder_tpu import Decoder
+    from jpeg_decoder_jax import Decoder
 
     d = Decoder(str(REFTEST_IMAGES / "mozilla" / "jpg-srgb-icc.jpg"))
     d.read_info()

@@ -1,279 +1,104 @@
-"""Pallas kernel parity (interpret mode on CPU; real-TPU parity is checked in
-the perf harness since tests run on the CPU mesh)."""
+"""The Pallas (Triton route) entropy kernel against the plain-JAX engine.
+
+On the CPU the kernel runs in the Pallas interpreter, on tiny generated
+images: every stored coefficient must equal the XLA engine's. Tests marked
+`gpu` compile it for the card and compare at real widths.
+"""
 
 import numpy as np
+import pytest
 
-from conftest import REFTEST_IMAGES
-
-from jpeg_decoder_tpu.ops.idct import dequantize_and_idct_blocks_fast
-
-
-def test_pallas_dequant_idct_matches_fast():
-    import jax.numpy as jnp
-    from jpeg_decoder_tpu.ops.pallas_kernels import dequantize_and_idct_blocks_pallas
-
-    rng = np.random.default_rng(42)
-    dense = rng.integers(-1000, 1000, (1500, 64)).astype(np.int16)
-    qt = rng.integers(1, 255, 64).astype(np.uint16)
-
-    a = np.asarray(dequantize_and_idct_blocks_pallas(
-        jnp.asarray(dense), jnp.asarray(qt), interpret=True))
-    b = dequantize_and_idct_blocks_fast(dense, qt, xp=np)
-    assert (a == b).all()
+from jpeg_decoder_jax.entropy.device_scan import (build_xla_sweep,
+                                                  merge_scans)
+from jpeg_decoder_jax.entropy.triton_decode import build_triton_sweep
+from jpeg_decoder_jax.models.stream import stage_host_bits
+from jpeg_decoder_jax.ops.idct import dequantize_and_idct_blocks_fast
+from jpeg_decoder_jax.testing.synth import make_jpeg
 
 
-def test_pallas_handles_nonmultiple_block_counts():
-    import jax.numpy as jnp
-    from jpeg_decoder_tpu.ops.pallas_kernels import dequantize_and_idct_blocks_pallas
-
-    rng = np.random.default_rng(7)
-    dense = rng.integers(-100, 100, (37, 64)).astype(np.int16)
-    qt = np.full(64, 16, np.uint16)
-    a = np.asarray(dequantize_and_idct_blocks_pallas(
-        jnp.asarray(dense), jnp.asarray(qt), interpret=True))
-    b = dequantize_and_idct_blocks_fast(dense, qt, xp=np)
-    assert a.shape == (37, 8, 8)
-    assert (a == b).all()
+def _scan(kind, w=48, h=32, seed=3):
+    st = stage_host_bits(make_jpeg(kind, w, h, seed=seed))
+    return st.scans[0][0]
 
 
-def test_fused_h2v2_ycbcr_matches_oracle():
-    import jax.numpy as jnp
-    from jpeg_decoder_tpu.ops.pallas_kernels import fused_h2v2_ycbcr_pallas
-    from jpeg_decoder_tpu.ops.upsample import upsample_component
-    from jpeg_decoder_tpu.ops.color import ycbcr_to_rgb
-
-    rng = np.random.default_rng(3)
-    out_h, out_w = 100, 166          # odd-ish sizes, not tile multiples
-    hc, wc = 50, 83
-    y = rng.integers(0, 256, (out_h + 4, out_w + 2)).astype(np.uint8)
-    cb = rng.integers(0, 256, (hc + 4, wc + 1)).astype(np.uint8)
-    cr = rng.integers(0, 256, (hc + 4, wc + 1)).astype(np.uint8)
-
-    out = np.asarray(fused_h2v2_ycbcr_pallas(
-        jnp.asarray(y), jnp.asarray(cb), jnp.asarray(cr),
-        out_h, out_w, hc, wc, row_tile=32, interpret=True))
-
-    cbu = upsample_component(cb, "h2v2", input_width=wc, input_height=hc,
-                             out_rows=out_h, out_width=out_w, xp=np)
-    cru = upsample_component(cr, "h2v2", input_width=wc, input_height=hc,
-                             out_rows=out_h, out_width=out_w, xp=np)
-    r, g, b = ycbcr_to_rgb(y[:out_h, :out_w], cbu, cru, xp=np)
-
-    assert (out[0] == r).all() and (out[1] == g).all() and (out[2] == b).all()
+def _args(scan):
+    return (scan.words, scan.anchor_bits, scan.anchor_block,
+            scan.anchor_slot, scan.luts)
 
 
-def test_planar_pallas_stream_matches_fast_decode():
-    """The fully-Pallas planar 4:2:0 tail through the stream pipeline equals
-    the fast-precision interleaved decode, transposed."""
+def _both(n_blocks, s_max, pattern, args, lanes=32):
     import jax
-    jax.config.update("jax_platforms", "cpu")
-    from jpeg_decoder_tpu import Decoder
-    from jpeg_decoder_tpu.models.stream import DeviceStreamDecoder
-
-    path = "/root/reference/tests/reftest/images/rgb.jpg"
-    data = open(path, "rb").read()
-    golden = Decoder(data, precision="fast").decode_array()  # [H, W, 3]
-
-    dec = DeviceStreamDecoder(host_threads=1, layout="planar-pallas")
-    out = np.asarray(dec.decode_stream([data])[0])           # [3, H, W]
-    assert out.shape == (3,) + golden.shape[:2]
-    assert (out == golden.transpose(2, 0, 1)).all()
+    ref = jax.jit(build_xla_sweep(n_blocks, s_max, pattern))(*args)
+    got = jax.jit(build_triton_sweep(n_blocks, s_max, pattern, lanes=lanes,
+                                     interpret=True))(*args)
+    return np.asarray(ref), np.asarray(got)
 
 
-def test_fused_h2v1_tail_matches_oracle():
-    """4:2:2 planar-pallas tail (near==far collapses to the H2V1 taps):
-    interpret-mode output == the oracle pipeline, bit-exact."""
-    import jax.numpy as jnp
-
-    from jpeg_decoder_tpu import Decoder
-    from jpeg_decoder_tpu.ops.pallas_kernels import (pallas_tail_mode,
-                                                     reconstruct_planar_pallas)
-    from jpeg_decoder_tpu.ops.pipeline import geometry_from_frame, _reconstruct
-
-    path = str(REFTEST_IMAGES / "mjpeg.jpg")   # 4:2:2 H2V1 chroma
-    d = Decoder(path)
-    d._decode_entropy_only()
-    n = len(d.frame.components)
-    stores = [jnp.asarray(d._pending_render[i][0].reshape(-1, 64))
-              for i in range(n)]
-    qts = [jnp.asarray(d._pending_render[i][1]) for i in range(n)]
-    geometry = geometry_from_frame(
-        d.frame, d._determine_color_transform(), precision="fast")
-    assert pallas_tail_mode(geometry) == "fused"
-
-    got = np.asarray(reconstruct_planar_pallas(geometry, stores, qts,
-                                               interpret=True))
-    want = np.asarray(_reconstruct(geometry, stores, qts, jnp))
-    assert (got == np.transpose(want, (2, 0, 1))).all()
+@pytest.mark.parametrize("kind", ["420", "422-dri", "444", "gray",
+                                  "progressive"])
+def test_triton_sweep_matches_xla(kind):
+    """Bit-exact stores on every sampling, with restart segments, and on a
+    transcoded (progressive) stream."""
+    scan = _scan(kind)
+    plan = scan.plan
+    ref, got = _both(plan.n_blocks, plan.s_max, tuple(plan.pattern),
+                     _args(scan))
+    assert ref.shape == (plan.n_blocks, 64)
+    assert np.abs(ref).sum() > 0
+    assert np.array_equal(ref, got)
 
 
-def test_fused_gray_tail_matches_oracle():
-    import jax.numpy as jnp
-
-    from jpeg_decoder_tpu import Decoder
-    from jpeg_decoder_tpu.ops.pallas_kernels import (pallas_tail_mode,
-                                                     reconstruct_planar_pallas)
-    from jpeg_decoder_tpu.ops.pipeline import geometry_from_frame, _reconstruct
-
-    path = str(REFTEST_IMAGES / "grayscale_square.jpg")
-    d = Decoder(path)
-    d._decode_entropy_only()
-    stores = [jnp.asarray(d._pending_render[0][0].reshape(-1, 64))]
-    qts = [jnp.asarray(d._pending_render[0][1])]
-    geometry = geometry_from_frame(d.frame, None, precision="fast")
-    assert pallas_tail_mode(geometry) == "gray"
-
-    got = np.asarray(reconstruct_planar_pallas(geometry, stores, qts,
-                                               interpret=True))
-    want = np.asarray(_reconstruct(geometry, stores, qts, jnp))
-    assert (got == want).all()
+@pytest.mark.parametrize("lanes", [32, 64])
+def test_triton_sweep_lane_widths(lanes):
+    """More chunks than one program's lanes, several programs, a partial
+    last program: the lane width changes the work split, not the result."""
+    scan = _scan("444", 128, 96, seed=4)
+    assert scan.n_items > lanes
+    plan = scan.plan
+    ref, got = _both(plan.n_blocks, plan.s_max, tuple(plan.pattern),
+                     _args(scan), lanes=lanes)
+    assert np.array_equal(ref, got)
 
 
-def _planar_pallas_vs_oracle(name):
-    import jax.numpy as jnp
-
-    from jpeg_decoder_tpu import Decoder
-    from jpeg_decoder_tpu.ops.pallas_kernels import (pallas_tail_mode,
-                                                     reconstruct_planar_pallas)
-    from jpeg_decoder_tpu.ops.pipeline import geometry_from_frame, _reconstruct
-
-    d = Decoder(str(REFTEST_IMAGES / name))
-    d._decode_entropy_only()
-    n = len(d.frame.components)
-    stores = [jnp.asarray(d._pending_render[i][0].reshape(-1, 64))
-              for i in range(n)]
-    qts = [jnp.asarray(d._pending_render[i][1]) for i in range(n)]
-    transform = None if n == 1 else d._determine_color_transform()
-    geometry = geometry_from_frame(d.frame, transform, precision="fast")
-    mode = pallas_tail_mode(geometry)
-    assert mode is not None, name
-
-    got = np.asarray(reconstruct_planar_pallas(geometry, stores, qts,
-                                               interpret=True))
-    want = np.asarray(_reconstruct(geometry, stores, qts, jnp))
-    if want.ndim == 3:
-        want = np.transpose(want, (2, 0, 1))
-    assert (got == want).all(), name
-    return mode
+def test_triton_sweep_merged_matches_xla():
+    """A merged sweep over images of different sizes (the batched and
+    mixed-size group paths): one kernel call, every image's rows intact."""
+    scans = [_scan("420", 48, 32, seed=5), _scan("420", 32, 16, seed=6),
+             _scan("420", 48, 32, seed=7)]
+    total = sum(s.n_blocks for s in scans) + 6   # bucketed past the real count
+    words, bits, block, slot, bases = merge_scans(scans)
+    pattern = tuple(scans[0].plan.pattern)
+    ref, got = _both(total, max(s.plan.s_max for s in scans), pattern,
+                     (words, bits, block, slot, scans[0].luts))
+    assert np.array_equal(ref, got)
+    assert not got[sum(s.n_blocks for s in scans):].any()
+    for s, b in zip(scans, bases):
+        solo, _ = _both(s.n_blocks, s.plan.s_max, pattern, _args(s))
+        assert np.array_equal(got[b:b + s.n_blocks], solo)
 
 
-def test_fused_tail_444_ycbcr():
-    assert _planar_pallas_vs_oracle("16bit-qtables.jpg") == "fused"
-
-
-def test_fused_tail_cmyk_444():
-    assert _planar_pallas_vs_oracle("mozilla/jpg-cmyk-1.jpg") == "fused"
-
-
-def test_fused_tail_cmyk_subsampled():
-    """CMYK with H2V2 chroma on three of four components: a 4-component h2
-    parity-split instance of the fused kernel."""
-    assert _planar_pallas_vs_oracle("mozilla/jpg-cmyk-2.jpg") == "fused"
-
-
-def test_fused_tail_ycck():
-    assert _planar_pallas_vs_oracle("ycck.jpg") == "fused"
-
-
-def test_rgb_444_stack_mode():
-    assert _planar_pallas_vs_oracle("rgb.jpg") == "stack"
-
-
-def test_fused_tail_h1v2_matches_oracle():
-    """H1V2 (vertical-only doubling) has no corpus exemplar; check the fused
-    kernel's vertical triangle taps against the oracle upsampler directly."""
-    import jax.numpy as jnp
-
-    from jpeg_decoder_tpu.ops.color import ycbcr_to_rgb
-    from jpeg_decoder_tpu.ops.pallas_kernels import fused_tail_pallas
-    from jpeg_decoder_tpu.ops.upsample import upsample_component
-
-    rng = np.random.default_rng(11)
-    out_h, out_w = 90, 130
-    hc, wc = 45, 130
-    y = rng.integers(0, 256, (out_h + 6, out_w + 6)).astype(np.uint8)
-    cb = rng.integers(0, 256, (hc + 3, wc + 6)).astype(np.uint8)
-    cr = rng.integers(0, 256, (hc + 3, wc + 6)).astype(np.uint8)
-
-    out = np.asarray(fused_tail_pallas(
-        (jnp.asarray(y), jnp.asarray(cb), jnp.asarray(cr)),
-        ("h1v1", "h1v2", "h1v2"), (hc, wc), "ycbcr", out_h, out_w,
-        row_tile=32, interpret=True))
-
-    cbu = upsample_component(cb, "h1v2", input_width=wc, input_height=hc,
-                             out_rows=out_h, out_width=out_w, xp=np)
-    cru = upsample_component(cr, "h1v2", input_width=wc, input_height=hc,
-                             out_rows=out_h, out_width=out_w, xp=np)
-    r, g, b = ycbcr_to_rgb(y[:out_h, :out_w], cbu, cru, xp=np)
-    assert (out[0] == r).all() and (out[1] == g).all() and (out[2] == b).all()
-
-
-def test_bits_stream_planar_pallas():
-    """The bits interchange reaches the fused Pallas tail too: output must
-    match the prefix interchange with the same layout."""
-    from jpeg_decoder_tpu.models.stream import DeviceStreamDecoder
-
-    bits = DeviceStreamDecoder(host_threads=1, layout="planar-pallas",
-                               interchange="bits")
-    prefix = DeviceStreamDecoder(host_threads=1, layout="planar-pallas")
-    for name in ("mjpeg.jpg", "restarts.jpg", "ycck.jpg"):
-        data = (REFTEST_IMAGES / name).read_bytes()
-        a = np.asarray(bits.decode_stream([data])[0])
-        b = np.asarray(prefix.decode_stream([data])[0])
-        assert a.shape == b.shape and (a == b).all(), name
-
-
-def test_batched_stream_respects_layout():
-    """batch_size > 1 groups must produce the same layout/content as the
-    per-image path for every layout, including the vmapped Pallas tail."""
-    from jpeg_decoder_tpu.models.stream import DeviceStreamDecoder
-
-    data = (REFTEST_IMAGES / "restarts.jpg").read_bytes()   # YCbCr 4:4:4
-    for layout in ("interleaved", "planar", "planar-pallas"):
-        dec = DeviceStreamDecoder(host_threads=1, layout=layout)
-        single = np.asarray(dec.decode_stream([data])[0])
-        batched = dec.decode_stream([data] * 4, batch_size=4)
-        assert len(batched) == 4
-        for out in batched:
-            out = np.asarray(out)
-            assert out.shape == single.shape, layout
-            assert (out == single).all(), layout
-
-
-def test_stream_planar_pallas_422_and_gray():
-    """The planar-pallas stream layout now reaches 4:2:2 and grayscale."""
-    from jpeg_decoder_tpu.models.stream import DeviceStreamDecoder
-
-    pp = DeviceStreamDecoder(host_threads=1, layout="planar-pallas")
-    pl_ = DeviceStreamDecoder(host_threads=1, layout="planar")
-    for name in ("mjpeg.jpg", "grayscale_square.jpg"):
-        data = (REFTEST_IMAGES / name).read_bytes()
-        a = np.asarray(pp.decode_stream([data])[0])
-        b = np.asarray(pl_.decode_stream([data])[0])
-        assert a.shape == b.shape and (a == b).all(), name
-
-
-def test_pallas_scaled_idct_matches_fast():
-    """Scaled (4x4/2x2/1x1) Pallas IDCT == the jnp/numpy fast formulation
-    (both run the scaled_idct_basis matmul; ops/idct.py)."""
-    import jax.numpy as jnp
-    from jpeg_decoder_tpu.ops.pallas_kernels import dequantize_and_idct_blocks_pallas
-
-    rng = np.random.default_rng(11)
-    dense = rng.integers(-1000, 1000, (1100, 64)).astype(np.int16)
-    qt = rng.integers(1, 255, 64).astype(np.uint16)
-    for scale in (4, 2, 1):
-        a = np.asarray(dequantize_and_idct_blocks_pallas(
-            jnp.asarray(dense), jnp.asarray(qt), interpret=True, scale=scale))
-        b = dequantize_and_idct_blocks_fast(dense, qt, xp=np, scale=scale)
-        assert a.shape == (1100, scale, scale)
-        assert (a == b).all(), scale
+def test_triton_sweep_drops_out_of_range_blocks():
+    """Stripe mode rebases a straddling chunk to negative blocks: emissions
+    outside [0, n_blocks) must be dropped, the rest kept."""
+    scan = _scan("gray", 64, 64, seed=8)
+    plan = scan.plan
+    shift = int(scan.anchor_block[1])            # first chunk's block count
+    block = scan.anchor_block.astype(np.int64) - shift
+    block[scan.n_items:] = plan.n_blocks - shift
+    args = (scan.words, scan.anchor_bits, block.astype(np.int32),
+            scan.anchor_slot, scan.luts)
+    n_out = plan.n_blocks - shift
+    ref, got = _both(n_out, plan.s_max, tuple(plan.pattern), args)
+    assert np.array_equal(ref, got)
+    full, _ = _both(plan.n_blocks, plan.s_max, tuple(plan.pattern),
+                    _args(scan))
+    assert np.array_equal(got, full[shift:])
 
 
 def test_fast_scaled_idct_near_exact():
     """The Dugad-Ahuja linearization stays within 1 of the exact integer
     kernels on in-range content (the fast-tier contract for scale < 8)."""
-    from jpeg_decoder_tpu.ops.idct import dequantize_and_idct_blocks
+    from jpeg_decoder_jax.ops.idct import dequantize_and_idct_blocks
 
     rng = np.random.default_rng(5)
     for scale in (4, 2, 1):
@@ -289,19 +114,53 @@ def test_fast_scaled_idct_near_exact():
 
 
 def test_scaled_decode_fast_within_tolerance():
-    """End-to-end scaled decode in fast precision stays within the reftest
-    tolerance of the exact path at every IDCT scale (the same <=3 contract
-    the unscaled fast path is held to)."""
-    from jpeg_decoder_tpu import Decoder
+    """End-to-end scaled decode in fast precision stays within 3 of the
+    exact path at every IDCT scale (the same contract the unscaled fast path
+    is held to)."""
+    from jpeg_decoder_jax import Decoder
 
-    path = str(REFTEST_IMAGES / "rgb.jpg")
-    for req in ((63, 42), (125, 84), (250, 167), (500, 333)):
-        d_exact = Decoder(path, backend="numpy", precision="exact")
+    data = make_jpeg("420", 160, 112, seed=9)
+    for req in ((20, 14), (40, 28), (80, 56), (160, 112)):
+        d_exact = Decoder(data, backend="numpy", precision="exact")
         d_exact.scale(*req)
         a = np.asarray(d_exact.decode_array()).astype(int)
 
-        d_fast = Decoder(path, backend="jax", precision="fast")
+        d_fast = Decoder(data, backend="jax", precision="fast")
         d_fast.scale(*req)
         b = np.asarray(d_fast.decode_array()).astype(int)
         assert a.shape == b.shape
         assert np.abs(a - b).max() <= 3, req
+
+
+@pytest.mark.parametrize("interchange", ["prefix", "bits"])
+def test_batched_stream_respects_layout(interchange):
+    """batch_size > 1 groups must produce the same layout and content as the
+    per-image path for every layout."""
+    from jpeg_decoder_jax.models.stream import DeviceStreamDecoder
+
+    data = make_jpeg("444", 40, 24, seed=10)
+    for layout in ("interleaved", "planar"):
+        dec = DeviceStreamDecoder(host_threads=1, layout=layout,
+                                  interchange=interchange)
+        single = np.asarray(dec.decode_stream([data])[0])
+        batched = dec.decode_stream([data] * 4, batch_size=4)
+        assert len(batched) == 4
+        for out in batched:
+            out = np.asarray(out)
+            assert out.shape == single.shape, layout
+            assert (out == single).all(), layout
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["420", "422-dri", "gray", "progressive"])
+def test_gpu_triton_sweep_matches_xla(gpu, kind):
+    """Compiled for the card, at the `large` class's width (2304 x 1536)."""
+    scan = _scan(kind, 2304, 1536, seed=0)
+    plan = scan.plan
+    import jax
+    args = _args(scan)
+    ref = np.asarray(jax.jit(build_xla_sweep(
+        plan.n_blocks, plan.s_max, tuple(plan.pattern)))(*args))
+    got = np.asarray(jax.jit(build_triton_sweep(
+        plan.n_blocks, plan.s_max, tuple(plan.pattern)))(*args))
+    assert np.array_equal(ref, got)

@@ -1,631 +1,85 @@
-"""Pallas anchored-decode kernel vs the XLA decoder — bit-exact stores.
+"""Merged entropy sweeps: several images' anchored chunks decoded in one
+sweep, and the stream's grouping that sends images there.
 
-Interpret mode on CPU (compiled-mode parity runs on real TPU via
-tools/tpu_validate.py). Both paths feed the shared assembler, so store
-equality proves the kernel's symbol walk (window fetch, F.16 maxcode chain,
-sublane-gather value lookups, state machine) matches the oracle semantics.
+The sweeps run the plain-JAX engine here (the Pallas kernel's own parity is
+in test_pallas.py); both engines take the same merged input.
 """
-
-import functools
-import os
 
 import numpy as np
 import pytest
 
-from conftest import REFTEST_IMAGES
-
-from jpeg_decoder_tpu import Decoder
-from jpeg_decoder_tpu.entropy.device_scan import decode_anchored_device
-from jpeg_decoder_tpu.entropy.pallas_decode import (
-    decode_anchored_pallas,
-    pack_classes,
-)
-
-from test_device_entropy import AnchorCapture
-
-# Interpret mode executes the kernel body per step in Python (~1k traced ops
-# per symbol step), so only tiny images are tractable here; real-image parity
-# (rgb.jpg, restarts.jpg, large_image, corpus spots) runs compiled on actual
-# TPU via tools/tpu_validate.py.
-CASES = [
-    "mozilla/jpg-size-1x1.jpg",
-    "mozilla/jpg-size-8x8.jpg",
-    "mozilla/jpg-size-16x16.jpg",
-]
+from jpeg_decoder_jax import Decoder
+from jpeg_decoder_jax.entropy.device_scan import (build_assembler_nat,
+                                                  build_xla_sweep,
+                                                  decode_anchored_device,
+                                                  merge_scans)
+from jpeg_decoder_jax.models import stream as sm
+from jpeg_decoder_jax.testing.synth import make_jpeg
 
 
-def _staged_scans(path):
-    d = Decoder(path if isinstance(path, bytes) else str(path))
-    cap = AnchorCapture()
-    d._prefix_capture = cap
-    d._decode_entropy_only()
-    return [s for s, _ in cap.scans]
+def _synth_jpeg(w, h, seed=0, kind="420"):
+    return make_jpeg(kind, w, h, seed=seed)
 
 
-slow = pytest.mark.skipif(
-    not os.environ.get("JPEG_TPU_SLOW_TESTS"),
-    reason="interpret-mode kernel walk is minutes-slow; set "
-           "JPEG_TPU_SLOW_TESTS=1 (tools/ci_matrix.sh does) or use "
-           "tools/tpu_validate.py for compiled parity")
-
-
-@pytest.fixture(autouse=True)
-def _drop_giant_traces():
-    """Interpret-mode cases each leave ~6 GB of tracing/executable caches;
-    after several in one process the XLA-CPU compiler aborts mid-compile
-    (observed 2026-08-19, each case passes alone). Dropping jax's caches
-    between tests keeps the process viable; ci_matrix additionally runs the
-    slow cases one-process-per-case."""
-    yield
-    if os.environ.get("JPEG_TPU_SLOW_TESTS"):
-        import jax
-        jax.clear_caches()
-
-
-@slow
-@pytest.mark.parametrize("device_slots", [False, True])
-@pytest.mark.parametrize("name", CASES)
-def test_pallas_matches_xla_decoder(name, device_slots):
-    path = REFTEST_IMAGES / name
-    if not path.exists():
-        pytest.skip()
-    if device_slots and name not in CASES[:2]:
-        # The interpret-mode walk is minutes-slow per case; the words wire
-        # differs only in slot materialisation (covered bit-for-bit by
-        # test_words_wire_matches_slots), so two kernel-path cases suffice.
-        pytest.skip("device_slots kernel parity sampled on two cases")
-    for staged in _staged_scans(path):
-        # device_slots runs the compact 8 B/chunk wire so the interpret
-        # walk also integrates the on-device metadata unpack (its math is
-        # separately pinned vs the legacy arrays corpus-wide).
-        dev = decode_anchored_pallas(staged, interpret=True,
-                                     device_slots=device_slots,
-                                     compact=device_slots)
-        assert dev is not None, "expected Pallas-eligible scan"
-        gold = decode_anchored_device(staged)
-        for c, (a, b) in enumerate(zip(dev, gold)):
-            bad = np.flatnonzero(np.asarray(a) != np.asarray(b))
-            assert bad.size == 0, (
-                f"{name} comp {c}: {bad.size} mismatches at {bad[:5]}")
-
-
-def _entry_for(staged):
-    from jpeg_decoder_tpu.entropy.pallas_decode import combine_packs
-    packs = pack_classes(staged)
-    shapes = tuple((p.slot_words, p.s_max, p.slots_t.shape[1] * 1024,
-                    p.n_items) for p in packs)
-    return (combine_packs(packs), shapes)
-
-
-def test_merge_image_packs_layout():
-    """Structural invariants of the multi-image pack merge: real items keep
-    their content with per-image block offsets in monotone order; padding is
-    inert (meta 0 = budget 0, base = total blocks = rowmap drop)."""
-    from jpeg_decoder_tpu.entropy.pallas_decode import merge_image_packs
-
-    staged = _staged_scans(REFTEST_IMAGES / "rgb.jpg")[0]
-    entry = _entry_for(staged)
-    N = 3
-    nb = staged.plan.n_blocks
-    combined, shapes = merge_image_packs([entry] * N, nb)
-    slots_all, meta_all, base_all = combined
-
-    io = 0
-    for (sw, sm, nb2, ni) in shapes:
-        assert ni % N == 0
-        base = base_all[io:io + nb2]
-        meta = meta_all[io:io + nb2]
-        per = ni // N
-        for i in range(N):
-            seg = base[i * per:(i + 1) * per]
-            assert seg.min() >= i * nb and seg.max() < (i + 1) * nb
-            assert (np.diff(seg) >= 0).all()       # rowmap needs monotone
-            assert np.array_equal(seg - i * nb, base[:per])  # same content
-            assert np.array_equal(meta[i * per:(i + 1) * per], meta[:per])
-        assert (base[ni:] == N * nb).all()
-        assert (meta[ni:] == 0).all()
-        io += nb2
-
-
-@slow
-def test_merged_pack_decodes_all_images():
-    """build_pallas_decoder(n_images=N) over a merge_image_packs merge must
-    reproduce each image's stores exactly (interpret mode, tiny image)."""
-    from jpeg_decoder_tpu.entropy.pallas_decode import (build_pallas_decoder,
-                                                        merge_image_packs)
-
-    staged = _staged_scans(REFTEST_IMAGES / "mozilla/jpg-size-16x16.jpg")[0]
-    entry = _entry_for(staged)
-    N = 2
-    combined, shapes = merge_image_packs([entry] * N, staged.plan.n_blocks)
-    fn = build_pallas_decoder(staged.plan, shapes, len(staged.tab_maxcode),
-                              interpret=True,
-                              comp_to_upair=staged.comp_to_upair, n_images=N)
-    stores_b = fn(combined, staged.tab_maxcode, staged.tab_delta,
-                  staged.tab_values.view(np.int32))
-    gold = decode_anchored_device(staged)
-    for c, s in enumerate(stores_b):
-        got = np.asarray(s)
-        assert got.shape[0] == N
-        for i in range(N):
-            assert (got[i].reshape(-1) == np.asarray(gold[c])).all(), (c, i)
-
-
-def test_class_packing_budget():
-    """Slot classes track the compressed size, not worst-case spans."""
-    staged = _staged_scans(REFTEST_IMAGES / "rgb.jpg")[0]
-    packs = pack_classes(staged)
-    assert packs is not None
-    slot_bytes = sum(p.n_items * p.slot_words * 4 for p in packs)
-    stream_bytes = staged.words.nbytes
-    assert slot_bytes < 3 * stream_bytes, (slot_bytes, stream_bytes)
-    # Every chunk lands in exactly one class.
-    assert sum(p.n_items for p in packs) == staged.n_items
-
-
-def test_class_collapse_packing(monkeypatch):
-    """JPEG_TPU_CLASS_COLLAPSE=1 packs every chunk of a small scan into ONE
-    class (the widest required), with content identical to the multi-class
-    layout's union: same meta/base values per chunk, just one kernel
-    launch. Off by default."""
-    import pathlib
-    tower = pathlib.Path("/root/reference/benches/tower.jpg")
-    if not tower.exists():
-        pytest.skip("bench corpus unavailable")
-    staged = _staged_scans(tower)[0]
-    assert staged.n_items <= 1024
-    monkeypatch.setenv("JPEG_TPU_CLASS_COLLAPSE", "0")
-    base = pack_classes(staged, wire="words")
-    monkeypatch.setenv("JPEG_TPU_CLASS_COLLAPSE", "1")
-    packs = pack_classes(staged, wire="words")
-    assert len(packs) == 1 and len(base) > 1
-    p = packs[0]
-    assert p.n_items == staged.n_items
-    assert p.slot_words == max(b.slot_words for b in base)
-    assert p.s_max >= max(b.s_max for b in base)
-    # Stream-ordered content: chunk i's meta/base match the staged arrays.
-    n = staged.n_items
-    budgets = staged.anchor_block[1:n + 1] - staged.anchor_block[:n]
-    a = staged.anchor_bits[:n].astype(np.int64)
-    want_meta = ((a & 7)
-                 | (staged.anchor_slot[:n].astype(np.int64) << 3)
-                 | (budgets.astype(np.int64) << 7)).astype(np.int32)
-    assert np.array_equal(p.meta.reshape(-1)[:n], want_meta)
-    assert np.array_equal(p.block_base.reshape(-1)[:n],
-                          staged.anchor_block[:n])
-
-    # Delta wire: the collapsed pack's device-side partition (single-class
-    # shortcut in unpack_delta_classes — the span rule must NOT re-derive
-    # the real classes) reconstructs the same stream-ordered sb/meta/base.
-    from jpeg_decoder_tpu.entropy.pallas_decode import (pack_delta,
-                                                        unpack_delta_classes)
-    packed = pack_delta(staged)
-    assert packed is not None
-    combined, shapes = packed
-    assert len(shapes) == 1 and shapes[0][3] == n
-    sb, meta, base = [np.asarray(x) for x in unpack_delta_classes(
-        combined, tuple(s[:3] for s in shapes), staged.n_blocks)[0]]
-    assert np.array_equal(sb[:n],
-                          (staged.anchor_bits[:n] >> 3).astype(np.int32))
-    assert np.array_equal(meta[:n], want_meta)
-    assert np.array_equal(base[:n], staged.anchor_block[:n])
-    assert (base[n:] == staged.n_blocks).all() and not meta[n:].any()
-
-
-def test_collapsed_delta_merge(monkeypatch):
-    """Merging collapsed (single-class) delta packs of images with
-    DIFFERENT top classes must produce ONE union class whose device
-    partition keeps stream order — the span rule would re-derive the real
-    classes and disagree with the summed host counts (hardware-caught
-    round-5 regression: mixed-size hetero sweep, 699k mismatches).
-    Collapse pinned ON (this is the collapsed-path test; ci_matrix runs
-    the suite with it forced off)."""
-    monkeypatch.setenv("JPEG_TPU_CLASS_COLLAPSE", "1")
-    import io
-
-    PIL = pytest.importorskip("PIL.Image")
-    from jpeg_decoder_tpu.entropy.pallas_decode import (
-        merge_image_packs_delta, pack_delta, unpack_delta_classes)
-    from jpeg_decoder_tpu.models.stream import stage_host_bits
-
-    rng = np.random.default_rng(21)
-
-    def mk(h, w, q):
-        arr = rng.integers(0, 255, (h, w, 3)).astype(np.uint8)
-        b = io.BytesIO()
-        PIL.fromarray(arr).save(b, format="JPEG", quality=q, subsampling=2)
-        return b.getvalue()
-
-    sts = [stage_host_bits(d).scans[0][0]
-           for d in (mk(64, 64, 60), mk(96, 96, 95))]
-    packs = [pack_delta(s) for s in sts]
-    assert all(p is not None and len(p[1]) == 1 for p in packs)
-    assert packs[0][1][0][0] != packs[1][1][0][0], "want distinct classes"
-    nbs = [s.plan.n_blocks for s in sts]
-    merged = merge_image_packs_delta(packs, nbs)
-    assert merged is not None
-    combined, shapes = merged
-    assert len(shapes) == 1
-    assert shapes[0][0] == max(p[1][0][0] for p in packs)
-    sb, meta, base = [np.asarray(x) for x in unpack_delta_classes(
-        tuple(map(np.asarray, combined)), tuple(s[:3] for s in shapes),
-        sum(nbs))[0]]
-    k = boff = 0
-    for s in sts:
-        n = s.n_items
-        budgets = s.anchor_block[1:n + 1] - s.anchor_block[:n]
-        wm = ((s.anchor_bits[:n].astype(np.int64) & 7)
-              | (s.anchor_slot[:n].astype(np.int64) << 3)
-              | (budgets.astype(np.int64) << 7)).astype(np.int32)
-        assert np.array_equal(meta[k:k + n], wm)
-        assert np.array_equal(base[k:k + n], s.anchor_block[:n] + boff)
-        k += n
-        boff += int(s.n_blocks)
-
-
-@pytest.mark.parametrize("name", ["rgb.jpg", "restarts.jpg",
-                                  "mozilla/jpg-progressive.jpg"])
-def test_native_pack_matches_numpy(name, monkeypatch):
-    """The C++ jt_pack_slots fill must be byte-identical to the numpy
-    gather fallback (same slots/meta/base for every class)."""
-    from jpeg_decoder_tpu.entropy import native as native_mod
-    if native_mod.get_native() is None or not hasattr(
-            native_mod.get_native(), "pack_slots"):
-        pytest.skip("native kernel unavailable")
-    path = REFTEST_IMAGES / name
-    if not path.exists():
-        pytest.skip()
-    for staged in _staged_scans(path):
-        packs_nat = pack_classes(staged)
-        if packs_nat is None:
-            continue
-        monkeypatch.setattr(native_mod, "get_native", lambda: None)
-        packs_np = pack_classes(staged)
-        monkeypatch.undo()
-        assert len(packs_nat) == len(packs_np)
-        for a, b in zip(packs_nat, packs_np):
-            assert (a.slot_words, a.s_max, a.n_items) == (
-                b.slot_words, b.s_max, b.n_items)
-            assert np.array_equal(a.slots_t, b.slots_t)
-            assert np.array_equal(a.meta, b.meta)
-            assert np.array_equal(a.block_base, b.block_base)
-
-
-def _materialize_np(words_i32, sb, sw):
-    """Numpy mirror of build_pallas_decoder.materialize_slots."""
-    w = words_i32.view(np.uint32)
-    b0 = sb >> 2
-    win = w[b0[:, None] + np.arange(sw + 1)[None, :]]
-    m = ((sb & 3) * 8)[:, None].astype(np.uint32)
-    hi = (win[:, :sw] << m) & 0xFFFFFFFF
-    lo = np.where(m > 0, win[:, 1:] >> np.where(m > 0, 32 - m, 1), 0)
-    return (hi | lo).astype(np.uint32).T.view(np.int32)
-
-
-@pytest.mark.parametrize("sw", [8, 12, 32, 60, 64, 128])
-def test_materialize_slots_synthetic(sw):
-    """materialize_slots vs the numpy mirror on synthetic streams covering
-    every row-count regime of the barrel-rotate formulation (2 gathered
-    rows up to the 256 B class, 3 for the 512 B class) and all byte
-    misalignments — corpus images rarely exercise the big classes."""
-    import jax
-    import jax.numpy as jnp
-    from jpeg_decoder_tpu.entropy.pallas_decode import materialize_slots
-
-    rng = np.random.default_rng(sw)
-    n_words = 2000
-    words = rng.integers(0, 1 << 32, n_words, dtype=np.uint32).view(np.int32)
-    # Starts at every byte alignment, incl. 0 and the last legal window.
-    max_start = (n_words - (sw + 1)) * 4 - 4
-    sb = np.concatenate([
-        np.arange(4, dtype=np.int64),
-        rng.integers(0, max_start, 500),
-        [max_start]]).astype(np.int32)
-    got = np.asarray(jax.jit(functools.partial(materialize_slots, sw=sw))(
-        jnp.asarray(words), jnp.asarray(sb)))
-    assert np.array_equal(got, _materialize_np(words, sb, sw))
-
-
-@pytest.mark.parametrize("name", ["rgb.jpg", "restarts.jpg"])
-def test_words_wire_matches_slots(name):
-    """wire="words" device materialisation — the production
-    materialize_slots (XLA gather+shift) — must rebuild exactly the
-    host-packed slot tiles, class by class."""
-    import jax
-    import jax.numpy as jnp
-    from jpeg_decoder_tpu.entropy.pallas_decode import (combine_packs_words,
-                                                        materialize_slots)
-
-    path = REFTEST_IMAGES / name
-    if not path.exists():
-        pytest.skip()
-    for staged in _staged_scans(path):
-        packs_s = pack_classes(staged, wire="slots")
-        packs_w = pack_classes(staged, wire="words")
-        if packs_s is None:
-            continue
-        words, sb_all, meta_all, base_all = combine_packs_words(
-            packs_w, staged.words, staged.n_words)
-        # meta/base identical between wires
-        assert np.array_equal(
-            meta_all, np.concatenate([p.meta.reshape(-1) for p in packs_s]))
-        assert np.array_equal(
-            base_all,
-            np.concatenate([p.block_base.reshape(-1) for p in packs_s]))
-        io = 0
-        for ps in packs_s:
-            nb = ps.meta.size
-            sb = sb_all[io:io + nb]
-            sw = ps.slot_words
-
-            got = np.asarray(jax.jit(
-                functools.partial(materialize_slots, sw=sw))(
-                    jnp.asarray(words), jnp.asarray(sb)))   # [sw, nb]
-            ref = ps.slots_t.reshape(sw, nb)
-            # real columns must match bit-for-bit (pad columns decode to
-            # dropped rows, their content is free)
-            assert np.array_equal(got[:, :ps.n_items],
-                                  ref[:, :ps.n_items]), sw
-            # and the numpy mirror agrees with the XLA math
-            assert np.array_equal(
-                _materialize_np(words, sb, sw)[:, :ps.n_items],
-                got[:, :ps.n_items])
-            io += nb
-
-
-def test_words_wire_corpus_packing_parity():
-    """Corpus-wide net for the default wire: for EVERY Pallas-eligible
-    reftest scan, the words-wire materialisation (numpy mirror of the
-    device gather+shift) and the compact-metadata unpack must reproduce
-    the host-packed slot tiles / metadata exactly."""
-    from conftest import reftest_files
-    from jpeg_decoder_tpu.entropy.pallas_decode import combine_packs_words
-
-    covered = 0
-    for path in reftest_files():
-        if "lossless" in str(path):
-            continue
-        try:
-            scans = _staged_scans(path)
-        except Exception:
-            continue   # malformed/progressive staging handled elsewhere
-        for staged in scans:
-            packs_s = pack_classes(staged, wire="slots")
-            packs_w = pack_classes(staged, wire="words")
-            if packs_s is None:
-                continue
-            covered += 1
-            words, sb_all, meta_all, base_all = combine_packs_words(
-                packs_w, staged.words, staged.n_words)
-            _, ab, pk = combine_packs_words(
-                packs_w, staged.words, staged.n_words, compact=True)
-            abu, pku = ab.view(np.uint32), pk.view(np.uint32)
-            assert np.array_equal((abu >> 3).view(np.int32), sb_all)
-            got_meta = ((abu & 7) | (((pku >> 5) & 0xF) << 3)
-                        | ((pku & 0x1F) << 7))
-            assert np.array_equal(got_meta.view(np.int32), meta_all), path
-            assert np.array_equal((pku >> 9).view(np.int32), base_all), path
-            io = 0
-            for ps in packs_s:
-                nb = ps.meta.size
-                got = _materialize_np(words, sb_all[io:io + nb],
-                                      ps.slot_words)
-                ref = ps.slots_t.reshape(ps.slot_words, nb)
-                assert np.array_equal(got[:, :ps.n_items],
-                                      ref[:, :ps.n_items]), path
-                io += nb
-    assert covered >= 20, covered   # the net must actually catch the corpus
-
-
-@pytest.mark.parametrize("name", ["rgb.jpg", "restarts.jpg"])
-def test_words_packed_metadata_roundtrip(name):
-    """Compact 8 B/chunk wire: the device unpack (logical shifts, numpy
-    mirror + the jitted XLA ops build_pallas_decoder.run uses) must
-    reconstruct exactly the legacy 12 B/chunk sb/meta/base arrays."""
-    import jax
-    from jpeg_decoder_tpu.entropy.pallas_decode import combine_packs_words
-
-    path = REFTEST_IMAGES / name
-    if not path.exists():
-        pytest.skip()
-    for staged in _staged_scans(path):
-        packs = pack_classes(staged, wire="words")
-        if packs is None:
-            continue
-        words_l, sb, meta, base = combine_packs_words(
-            packs, staged.words, staged.n_words)
-        words_c, ab, pk = combine_packs_words(
-            packs, staged.words, staged.n_words, compact=True)
-        assert np.array_equal(words_l, words_c)
-        abu, pku = ab.view(np.uint32), pk.view(np.uint32)
-        assert np.array_equal((abu >> 3).view(np.int32), sb)
-        got_meta = ((abu & 7) | (((pku >> 5) & 0xF) << 3)
-                    | ((pku & 0x1F) << 7))
-        assert np.array_equal(got_meta.view(np.int32), meta)
-        assert np.array_equal((pku >> 9).view(np.int32), base)
-
-        def unpack(ab, pk):
-            sb2 = jax.lax.shift_right_logical(ab, 3)
-            meta2 = ((ab & 7)
-                     | ((jax.lax.shift_right_logical(pk, 5) & 0xF) << 3)
-                     | ((pk & 0x1F) << 7))
-            return sb2, meta2, jax.lax.shift_right_logical(pk, 9)
-
-        s2, m2, b2 = jax.jit(unpack)(ab, pk)
-        assert np.array_equal(np.asarray(s2), sb)
-        assert np.array_equal(np.asarray(m2), meta)
-        assert np.array_equal(np.asarray(b2), base)
-
-
-def test_merge_image_packs_words_compact_layout():
-    """Compact-wire multi-image merge must agree with the legacy merge
-    after unpacking: entry bits shift by the word base, bases by i*nb."""
-    from jpeg_decoder_tpu.entropy.pallas_decode import (
-        combine_packs_words, merge_image_packs_words)
-
-    staged = _staged_scans(REFTEST_IMAGES / "mozilla/jpg-size-16x16.jpg")[0]
-    packs = pack_classes(staged, wire="words")
-    shapes = tuple((p.slot_words, p.s_max, p.meta.size, p.n_items)
-                   for p in packs)
-    legacy = combine_packs_words(packs, staged.words, staged.n_words)
-    comp = combine_packs_words(packs, staged.words, staged.n_words,
-                               compact=True)
-    N = 3
-    nb = staged.plan.n_blocks
-    (wl, sb, meta, base), lsh = merge_image_packs_words(
-        [(legacy, shapes)] * N, nb)
-    (wc, ab, pk), csh = merge_image_packs_words([(comp, shapes)] * N, nb)
-    assert lsh == csh
-    assert np.array_equal(wl, wc)
-    abu, pku = ab.view(np.uint32), pk.view(np.uint32)
-    # entry bit offset >> 3 == merged start byte; note the legacy merge
-    # shifts bytes (off*4) and the compact merge bits (off*32) — same point
-    assert np.array_equal((abu >> 3).view(np.int32), sb)
-    got_meta = ((abu & 7) | (((pku >> 5) & 0xF) << 3) | ((pku & 0x1F) << 7))
-    assert np.array_equal(got_meta.view(np.int32), meta)
-    assert np.array_equal((pku >> 9).view(np.int32), base)
-
-
-def test_merge_compact_degrades_past_base_bits():
-    """A merge whose batch offsets would overflow the compact wire's 23
-    base bits must degrade to the 12 B/chunk layout instead of wrapping
-    into wrong-but-valid block indices."""
-    from jpeg_decoder_tpu.entropy.pallas_decode import (
-        combine_packs_words, merge_image_packs_words)
-
-    staged = _staged_scans(REFTEST_IMAGES / "mozilla/jpg-size-16x16.jpg")[0]
-    packs = pack_classes(staged, wire="words")
-    shapes = tuple((p.slot_words, p.s_max, p.meta.size, p.n_items)
-                   for p in packs)
-    comp = combine_packs_words(packs, staged.words, staged.n_words,
-                               compact=True)
-    big_nb = 1 << 22   # pretend each image spans 4M blocks
-    merged, _ = merge_image_packs_words([(comp, shapes)] * 3, big_nb)
-    assert len(merged) == 4, "compact merge must degrade to legacy arity"
-    _, sb, meta, base = merged
-    real = base[base < 3 * big_nb]
-    assert real.max() >= 2 * big_nb   # third image's offsets intact
-
-
-def test_merge_image_packs_words_layout():
-    """Multi-image words merge: start bytes shift by the image word base,
-    block bases by i*nb_image, per-class items stay stream-ordered."""
-    from jpeg_decoder_tpu.entropy.pallas_decode import (combine_packs_words,
-                                                        merge_image_packs_words)
-    staged = _staged_scans(REFTEST_IMAGES / "mozilla/jpg-size-16x16.jpg")[0]
-    packs = pack_classes(staged, wire="words")
-    combined = combine_packs_words(packs, staged.words, staged.n_words)
-    shapes = tuple((p.slot_words, p.s_max, p.meta.size, p.n_items)
-                   for p in packs)
-    N = 3
-    merged, mshapes = merge_image_packs_words(
-        [(combined, shapes)] * N, staged.plan.n_blocks)
-    words, sb, meta, base = merged
-    wlen = len(combined[0])
-    for (sw, sm, nb2, ni_tot) in mshapes:
-        assert ni_tot == sum(p.n_items for p in packs if p.slot_words == sw) * N
-    # block bases of image i start at i * n_blocks
-    nb_img = staged.plan.n_blocks
-    real_base = base[base < N * nb_img]
-    per_img = [((real_base >= i * nb_img) & (real_base < (i + 1) * nb_img)).sum()
-               for i in range(N)]
-    assert len(set(per_img)) == 1 and per_img[0] > 0
-    # words buffer holds N copies of the per-image padded stream
-    for i in range(N):
-        assert np.array_equal(words[i * wlen:(i + 1) * wlen], combined[0])
-
-
-def _synth_jpeg(w, h, seed=0, quality=90, mode="RGB"):
-    import io
-
-    from PIL import Image
-    rng = np.random.default_rng(seed)
-    shape = (h, w, 3) if mode == "RGB" else (h, w)
-    arr = rng.integers(0, 256, shape, dtype=np.uint8)
-    buf = io.BytesIO()
-    kw = {"subsampling": 2} if mode == "RGB" else {}
-    Image.fromarray(arr, mode).save(buf, "JPEG", quality=quality, **kw)
-    return buf.getvalue()
+def _scan(data):
+    return sm.stage_host_bits(data).scans[0][0]
 
 
 def test_merge_hetero_block_offsets():
-    """merge_image_packs(_words) with per-image block counts: image i's
-    bases shift by the cumulative block offset (heterogeneous merge)."""
-    from jpeg_decoder_tpu.entropy.pallas_decode import (
-        combine_packs_words, merge_image_packs, merge_image_packs_words)
-
-    a = _staged_scans(_synth_jpeg(32, 16, seed=1))[0]
-    b = _staged_scans(_synth_jpeg(48, 32, seed=2))[0]
-    nbs = [a.plan.n_blocks, b.plan.n_blocks]
-    total = sum(nbs)
-
-    ea, eb = _entry_for(a), _entry_for(b)
-    (slots, meta, base), mshapes = merge_image_packs([ea, eb], nbs)
-    real = base[base < total]
-    assert real.min() >= 0
-    assert (real >= nbs[0]).any() and (real < nbs[0]).any()
-    # every second-image base is the first-image domain shifted by nbs[0]
-    n_real = sum(s[3] for s in mshapes)
-    assert n_real == sum(s[3] for s in ea[1]) + sum(s[3] for s in eb[1])
-
-    def wentry(st):
-        packs = pack_classes(st, wire="words")
-        shapes = tuple((p.slot_words, p.s_max, p.meta.size, p.n_items)
-                       for p in packs)
-        return (combine_packs_words(packs, st.words, st.n_words), shapes)
-
-    merged, _ = merge_image_packs_words([wentry(a), wentry(b)], nbs)
-    _w, _sb, _m, wbase = merged
-    realw = wbase[wbase < total]
-    assert set(np.unique(realw < nbs[0])) <= {True, False}
-    assert (realw >= nbs[0]).any()
+    """merge_scans with per-image block counts: image i's anchors shift by
+    the cumulative block offset, its bits by its word base, and every
+    padding chunk owns no blocks."""
+    a = _scan(_synth_jpeg(32, 16, seed=1))
+    b = _scan(_synth_jpeg(48, 32, seed=2))
+    words, bits, block, slot, bases = merge_scans([a, b])
+    assert bases == [0, a.n_blocks]
+    assert len(words) == len(a.words) + len(b.words)
+    assert len(block) == len(bits) + 1 == len(slot) + 1
+    ia, ib = len(a.anchor_bits), len(b.anchor_bits)
+    assert np.array_equal(block[:a.n_items], a.anchor_block[:a.n_items])
+    assert np.array_equal(block[ia:ia + b.n_items],
+                          b.anchor_block[:b.n_items] + a.n_blocks)
+    assert np.array_equal(bits[ia:ia + b.n_items].astype(np.int64),
+                          b.anchor_bits[:b.n_items].astype(np.int64)
+                          + 32 * len(a.words))
+    budgets = np.diff(block)
+    real = np.zeros(len(bits), bool)
+    real[:a.n_items] = True
+    real[ia:ia + b.n_items] = True
+    assert (budgets[~real] == 0).all()
+    assert budgets[real].sum() == a.n_blocks + b.n_blocks
+    assert block[-1] == a.n_blocks + b.n_blocks and ib > 0
 
 
-@slow
-def test_hetero_sweep_decodes_mixed_images():
-    """One kernel sweep over a mixed-size merge + per-plan assembly slices
-    (the round-3 heterogeneous batched-bits path) reproduces every image's
-    stores exactly (interpret mode, tiny grayscale images, shared encoder
-    tables — color pairs would double the interpret walk's cost)."""
-    from jpeg_decoder_tpu.entropy.pallas_decode import (build_assembler_nat,
-                                                        build_pallas_sweep,
-                                                        merge_image_packs)
+@pytest.mark.parametrize("case", ["same-plan", "mixed-size"])
+def test_merged_sweep_matches_per_image(case):
+    """One sweep over a merge + per-image assembly reproduces every image's
+    stores exactly."""
     import jax
 
-    a = _staged_scans(_synth_jpeg(16, 16, seed=3, mode="L"))[0]
-    b = _staged_scans(_synth_jpeg(24, 16, seed=4, mode="L"))[0]
-    assert a.tab_maxcode.tobytes() == b.tab_maxcode.tobytes()
-    pat_a = tuple(a.comp_to_upair[c] for c in a.plan.pattern)
-    pat_b = tuple(b.comp_to_upair[c] for c in b.plan.pattern)
-    assert pat_a == pat_b
-
-    nbs = [a.plan.n_blocks, b.plan.n_blocks]
-    combined, shapes = merge_image_packs([_entry_for(a), _entry_for(b)], nbs)
-    total = sum(nbs)
-    nb_bucket = total + 7   # deliberately bucketed past the real count
-    sweep = build_pallas_sweep(tuple(s[:3] for s in shapes),
-                               len(a.tab_maxcode), pat_a, nb_bucket,
-                               interpret=True)
-    nat = np.asarray(sweep(combined, a.tab_maxcode, a.tab_delta,
-                           a.tab_values.view(np.int32)))
-    off = 0
-    for st in (a, b):
-        assemble = build_assembler_nat(st.plan, flat_stores=False)
-        seg = nat[off:off + st.plan.n_blocks]
-        stores = jax.jit(assemble)(seg)
+    sizes = ([(48, 32)] * 3 if case == "same-plan"
+             else [(48, 32), (32, 16), (64, 48)])
+    scans = [_scan(_synth_jpeg(w, h, seed=20 + i))
+             for i, (w, h) in enumerate(sizes)]
+    words, bits, block, slot, bases = merge_scans(scans)
+    total = sum(s.n_blocks for s in scans)
+    nat = np.asarray(jax.jit(build_xla_sweep(
+        total + 5, max(s.plan.s_max for s in scans),
+        tuple(scans[0].plan.pattern)))(words, bits, block, slot,
+                                       scans[0].luts))
+    assert not nat[total:].any()
+    for st, off in zip(scans, bases):
+        stores = jax.jit(build_assembler_nat(st.plan, flat_stores=False))(
+            nat[off:off + st.n_blocks])
         gold = decode_anchored_device(st)
         for c, s in enumerate(stores):
             assert (np.asarray(s).reshape(-1) == np.asarray(gold[c])).all(), c
-        off += st.plan.n_blocks
 
 
-def test_mixed_size_stream_routes_hetero(monkeypatch):
+def test_mixed_size_stream_routes_hetero():
     """decode_stream groups mixed-size same-encoder images under the hetero
-    key and dispatches them through _decode_group_bits_hetero (routing spy —
-    compiled-mode correctness runs on hardware via tools/tpu_validate.py)."""
-    from jpeg_decoder_tpu.models import stream as sm
-
-    monkeypatch.setenv("JPEG_TPU_BITS_PALLAS", "interpret")
+    key: ONE entropy sweep, one reconstruct per distinct plan, outputs in
+    stream order and equal to the oracle."""
     imgs = [_synth_jpeg(32, 16, seed=5), _synth_jpeg(48, 32, seed=6),
             _synth_jpeg(32, 16, seed=7)]
     staged = [sm.stage_host_bits(d) for d in imgs]
@@ -635,53 +89,19 @@ def test_mixed_size_stream_routes_hetero(monkeypatch):
     exact = {sm._bits_group_key(st) for st in staged}
     assert len(exact) == 2, "plans differ, exact keys must split"
 
-    # Execute the REAL dispatch body (merge, plan grouping, offsets, qts
-    # stacking, stream-order scatter) with only the jitted device stages
-    # faked — compiled correctness runs on hardware (tpu_validate) and in
-    # the slow interpret sweep test above.
-    import jax.numpy as jnp
-
-    sweeps = []
-    recons = []
-
-    def fake_sweep(class_shapes, n_tab, pattern, n_blocks, device_slots,
-                   interpret, pack16=None):
-        sweeps.append((class_shapes, n_blocks, device_slots))
-
-        def run(combined, mc, dl, vv):
-            return jnp.zeros((n_blocks, 64), jnp.int16)
-        return run
-
-    def fake_recon(plan, count_bucket, geometry, layout, interpret):
-        def run(nat, off, qts_b):
-            recons.append((plan.n_blocks, count_bucket, int(off)))
-            return jnp.full((count_bucket, geometry.out_height,
-                             geometry.out_width, 3), plan.n_blocks % 251,
-                            jnp.uint8)
-        return run
-
-    monkeypatch.setattr(sm, "_compiled_bits_sweep", fake_sweep)
-    monkeypatch.setattr(sm, "_compiled_nat_reconstruct", fake_recon)
-    dec = sm.DeviceStreamDecoder(host_threads=1, interchange="bits")
+    dec = sm.DeviceStreamDecoder(host_threads=1, interchange="bits",
+                                 precision="exact")
     outs = dec.decode_stream(imgs, batch_size=4)
-    assert len(sweeps) == 1, "mixed sizes must take ONE kernel sweep"
-    assert len(recons) == 2, "one reconstruct per distinct plan"
-    # Offsets are cumulative real block counts in plan-group order.
-    nb_small = min(r[0] for r in recons)
-    offs = sorted(r[2] for r in recons)
-    assert offs[0] == 0 and offs[1] in (2 * nb_small, recons[0][0] * 2,
-                                        recons[1][0] * 2)
-    # Outputs return in stream order with per-plan fill values.
-    vals = [int(np.asarray(o)[0, 0, 0]) for o in outs]
-    assert vals[0] == vals[2] != vals[1], vals
+    assert dec.counts["sweeps"] == 1, "mixed sizes must take ONE sweep"
+    assert dec.counts["dispatches"] == 3, "sweep + one reconstruct per plan"
+    for data, out in zip(imgs, outs):
+        gold = Decoder(data, backend="numpy").decode_array()
+        assert np.array_equal(np.asarray(out), gold)
 
 
 def test_hetero_grouping_is_size_aware(monkeypatch):
-    """Images above the hetero Mpix threshold must group on the exact key
-    (per-plan fused pipelines measured 1.19x better with >=0.5 Mpix members,
-    tools/experiments/mixed_ab.py), small ones on the hetero key."""
-    from jpeg_decoder_tpu.models import stream as sm
-
+    """Images above the hetero Mpix threshold must group on the exact key,
+    small ones on the hetero key."""
     small = sm.stage_host_bits(_synth_jpeg(320, 256, seed=11))
     big = sm.stage_host_bits(_synth_jpeg(1024, 768, seed=12))
     assert small.mpix <= 0.25 < big.mpix
@@ -699,8 +119,7 @@ def test_hetero_grouping_is_size_aware(monkeypatch):
     monkeypatch.setattr(sm, "_bits_hetero_key", spy_hetero)
     monkeypatch.setattr(sm.DeviceStreamDecoder, "_decode_group_bits",
                         fake_dispatch)
-    dec = sm.DeviceStreamDecoder(host_threads=1)
-    dec.interchange = "bits"
+    dec = sm.DeviceStreamDecoder(host_threads=1, interchange="bits")
     outs = dec.decode_stream([_synth_jpeg(320, 256, seed=11),
                               _synth_jpeg(1024, 768, seed=12)], batch_size=4)
     assert len(outs) == 2
@@ -708,251 +127,36 @@ def test_hetero_grouping_is_size_aware(monkeypatch):
     assert [r[0] for r in routed] == ["hetero"]
     assert routed[0][1] <= 0.25
 
-def _delta_expected(staged):
-    """Ground truth for the 4 B/chunk delta wire, straight from the staged
-    scan: per class (in ascending SLOT_CLASSES order), the stream-ordered
-    (sb, meta, base) of its real items under the delta-span classification
-    (span from consecutive anchors — may bump an item one class above the
-    chunk_end-based pack_classes span; both sides use the same rule)."""
-    from jpeg_decoder_tpu.entropy.pallas_decode import SLOT_CLASSES
 
-    n = staged.n_items
-    ab = staged.anchor_bits[:n].astype(np.int64)
-    end_last = int(staged.chunk_end[:n][-1])
-    budgets = (staged.anchor_block[1:n + 1]
-               - staged.anchor_block[:n]).astype(np.int64)
-    slot0 = staged.anchor_slot[:n].astype(np.int64)
-    d_next = np.concatenate([ab[1:], [end_last]]) - ab
-    span = ((ab + d_next) >> 3) - (ab >> 3) + 9
-    cls = np.searchsorted(np.asarray(SLOT_CLASSES), span)
-    meta = (ab & 7) | (slot0 << 3) | (budgets << 7)
-    base = staged.anchor_block[:n].astype(np.int64)
-    out = {}
-    for ci in sorted(set(cls.tolist())):
-        sel = cls == ci
-        out[int(ci)] = (ab[sel] >> 3, meta[sel], base[sel])
-    return out
+@pytest.mark.parametrize("n", [2, 3, 8])
+def test_same_plan_group_is_one_sweep(n):
+    """n same-plan bits images with batch_size=8: one dispatch, one sweep
+    (the group pads to a power-of-two batch), every output exact."""
+    imgs = [_synth_jpeg(48, 32, seed=30 + i) for i in range(n)]
+    dec = sm.DeviceStreamDecoder(host_threads=2, interchange="bits",
+                                 precision="exact")
+    outs = dec.decode_stream(imgs, batch_size=8)
+    assert dict(dec.counts) == {"dispatches": 1, "sweeps": 1}
+    for data, out in zip(imgs, outs):
+        gold = Decoder(data, backend="numpy").decode_array()
+        assert np.array_equal(np.asarray(out), gold)
 
 
-@pytest.mark.parametrize("name", ["rgb.jpg", "restarts.jpg", "mjpeg.jpg"])
-def test_delta_wire_unpack_parity(name, monkeypatch):
-    """wire="delta" (4 B/chunk): the jitted device reconstruction
-    (unpack_delta_classes — cumsums, span classification, stable argsort
-    partition) must reproduce the stream-ordered per-class sb/meta/base
-    exactly, and the materialised windows must match the host-packed
-    tiles at those starts. Collapse is disabled: this pins the SPAN-RULE
-    path (the collapsed single-class path is pinned by
-    test_class_collapse_packing)."""
-    monkeypatch.setenv("JPEG_TPU_CLASS_COLLAPSE", "0")
-    import jax
-    import jax.numpy as jnp
-    from jpeg_decoder_tpu.entropy.pallas_decode import (
-        SLOT_CLASSES, materialize_slots, pack_delta, unpack_delta_classes)
-
-    path = REFTEST_IMAGES / name
-    if not path.exists():
-        pytest.skip()
-    covered = 0
-    for staged in _staged_scans(path):
-        packed = pack_delta(staged)
-        if packed is None:
-            continue
-        covered += 1
-        combined, shapes = packed
-        got = jax.jit(functools.partial(
-            unpack_delta_classes,
-            class_shapes=tuple(s[:3] for s in shapes),
-            n_blocks=staged.plan.n_blocks))(tuple(map(jnp.asarray, combined)))
-        exp = _delta_expected(staged)
-        assert len(got) == len(exp) == len(shapes)
-        for (sw, _sm, nb, ni), (ci, (esb, emeta, ebase)), (gsb, gmeta, gbase) \
-                in zip(shapes, sorted(exp.items()), got):
-            assert sw == SLOT_CLASSES[ci] // 4
-            assert ni == len(esb)
-            assert np.array_equal(np.asarray(gsb)[:ni], esb), name
-            assert np.array_equal(np.asarray(gmeta)[:ni], emeta), name
-            assert np.array_equal(np.asarray(gbase)[:ni], ebase), name
-            # pad rows inert
-            assert np.all(np.asarray(gmeta)[ni:] == 0)
-            assert np.all(np.asarray(gbase)[ni:] == staged.plan.n_blocks)
-            # windows at those starts materialise to the true stream bytes
-            win = np.asarray(jax.jit(functools.partial(
-                materialize_slots, sw=sw))(
-                    jnp.asarray(combined[0]),
-                    jnp.asarray(esb.astype(np.int32))))
-            ref = _materialize_np(np.asarray(combined[0]),
-                                  esb.astype(np.int32), sw)
-            assert np.array_equal(win, ref)
-    assert covered, "expected at least one delta-eligible scan"
+def test_group_key_ignores_buckets_but_not_tables():
+    """Same-geometry images merge whatever their word/chunk buckets; images
+    with other Huffman tables (a transcoded progressive stream) do not."""
+    a = sm.stage_host_bits(_synth_jpeg(64, 48, seed=40))
+    b = sm.stage_host_bits(_synth_jpeg(64, 48, seed=41, kind="progressive"))
+    assert sm._bits_group_key(a) is not None
+    assert sm._bits_group_key(a) != sm._bits_group_key(b)
+    assert sm._bits_group_key(a, True)[1] is a.scans[0][0].plan
 
 
-def test_delta_wire_corpus_packing_parity():
-    """Corpus-wide net for the delta wire: every Pallas-eligible reftest
-    scan must either pack_delta (and then the numpy-mirror reconstruction
-    matches the stream metadata exactly) or explicitly degrade (None)."""
-    from conftest import reftest_files
-    from jpeg_decoder_tpu.entropy.pallas_decode import pack_delta
-
-    covered = eligible = 0
-    for path in reftest_files():
-        if "lossless" in str(path):
-            continue
-        try:
-            scans = _staged_scans(path)
-        except Exception:
-            continue
-        for staged in scans:
-            if pack_classes(staged, wire="slots") is None:
-                continue
-            eligible += 1
-            packed = pack_delta(staged)
-            if packed is None:
-                continue
-            covered += 1
-            (words, dm, cnts), shapes = packed
-            dmu = dm.view(np.uint32)
-            n = int(cnts.sum())
-            d = (dmu >> 9).astype(np.int64)
-            ab = np.cumsum(d)
-            budgets = ((dmu >> 4) & 0x1F).astype(np.int64)
-            base = np.cumsum(budgets) - budgets
-            nreal = staged.n_items
-            assert n == nreal
-            assert np.array_equal(ab[:nreal],
-                                  staged.anchor_bits[:nreal].astype(np.int64))
-            assert np.array_equal(
-                base[:nreal], staged.anchor_block[:nreal].astype(np.int64))
-            if len(cnts) == 1:
-                # Collapsed scan (default): one class holds all chunks.
-                assert [nreal] == [int(c) for c in cnts]
-            else:
-                exp = _delta_expected(staged)
-                assert [len(v[0]) for v in exp.values()] == list(
-                    int(c) for c in cnts)
-    assert covered >= 20, (covered, eligible)
-    # The wire must not silently regress to rare: most eligible scans pack.
-    assert covered >= eligible * 3 // 4, (covered, eligible)
-
-
-def test_delta_wire_merge_parity(monkeypatch):
-    """merge_image_packs_delta: N copies of one image must unpack to the
-    per-image metadata with word starts shifted by each image's word base
-    and block bases by i * n_blocks (which the budget cumsum must produce
-    without any explicit offsets). Collapse pinned off: this exercises the
-    span-class merge (collapsed merges are pinned by
-    test_collapsed_delta_merge)."""
-    monkeypatch.setenv("JPEG_TPU_CLASS_COLLAPSE", "0")
-    import jax
-    import jax.numpy as jnp
-    from jpeg_decoder_tpu.entropy.pallas_decode import (
-        merge_image_packs_delta, pack_delta, unpack_delta_classes)
-
-    staged = _staged_scans(REFTEST_IMAGES / "rgb.jpg")[0]
-    packed = pack_delta(staged)
-    assert packed is not None
-    N = 3
-    nb_img = staged.plan.n_blocks
-    merged = merge_image_packs_delta([packed] * N, nb_img)
-    assert merged is not None
-    combined, shapes = merged
-    words_len = len(packed[0][0])
-    got = jax.jit(functools.partial(
-        unpack_delta_classes,
-        class_shapes=tuple(s[:3] for s in shapes),
-        n_blocks=nb_img * N))(tuple(map(jnp.asarray, combined)))
-    exp = _delta_expected(staged)
-    for (sw, _sm, nb2, ni_tot), (ci, (esb, emeta, ebase)), \
-            (gsb, gmeta, gbase) in zip(shapes, sorted(exp.items()), got):
-        ni = len(esb)
-        assert ni_tot == ni * N
-        for i in range(N):
-            sl = slice(i * ni, (i + 1) * ni)
-            assert np.array_equal(np.asarray(gsb)[sl],
-                                  esb + i * words_len * 4)
-            assert np.array_equal(np.asarray(gmeta)[sl], emeta)
-            assert np.array_equal(np.asarray(gbase)[sl],
-                                  ebase + i * nb_img)
-        assert np.all(np.asarray(gbase)[ni_tot:] == nb_img * N)
-
-
-def test_pack_delta_native_matches_numpy_mirror():
-    """ABI-15 jt_pack_delta vs the numpy mirror, corpus-wide: identical dm
-    words (incl. terminator), class counts, class max-syms — and identical
-    fallback decisions."""
-    from conftest import reftest_files
-    from jpeg_decoder_tpu.entropy.native import get_native
-    from jpeg_decoder_tpu.entropy.pallas_decode import pack_delta_meta_np
-
-    native = get_native()
-    if native is None or not hasattr(native, "pack_delta_meta"):
-        pytest.skip("native library unavailable")
-    covered = 0
-    for path in reftest_files():
-        if "lossless" in str(path):
-            continue
-        try:
-            scans = _staged_scans(path)
-        except Exception:
-            continue
-        for staged in scans:
-            if staged.chunk_end is None or staged.n_items == 0:
-                continue
-            n = staged.n_items
-            ref = pack_delta_meta_np(staged)
-            dm = np.empty(n + 1, np.uint32)
-            got = native.pack_delta_meta(
-                staged.anchor_bits[:n], staged.anchor_block[:n + 1],
-                staged.anchor_slot[:n], staged.chunk_end[:n],
-                staged.chunk_syms[:n], n, dm)
-            assert (got is None) == (ref is None), path
-            if ref is None:
-                continue
-            covered += 1
-            rdm, rcnt, rsyms = ref
-            assert np.array_equal(dm, rdm), path
-            assert np.array_equal(got[0], rcnt), path
-            assert np.array_equal(got[1], rsyms), path
-    assert covered >= 20, covered
-
-
-def test_unpack16_rows_roundtrip():
-    """pack16 dense emission (round 4): packing two natural positions per
-    int32 row (plain wrap16 16-bit halves, OR-accumulated) must unpack to
-    exactly the rows the unpacked [K_CAP*64] transpose produces — same
-    row order, same natural-position columns, same wrap-16 values."""
-    import jax
-    import jax.numpy as jnp
-    from jpeg_decoder_tpu.entropy.device_scan import K_CAP
-    from jpeg_decoder_tpu.entropy.pallas_decode import unpack16_rows
-
-    rng = np.random.default_rng(7)
-    G = 2
-    # Write-once sparse values per (lane, chunk-block j, position c): the
-    # full int16 range INCLUDING -32768 (a transcoded DC delta of +-32768
-    # mod 2^16 is reachable via DC wraparound and must survive exactly).
-    dense64 = np.zeros((K_CAP * 64, G, 8, 128), np.int32)
-    packed = np.zeros((K_CAP * 32, G, 8, 128), np.int32)
-    n_writes = 5000
-    rows_w = rng.integers(0, K_CAP * 64, n_writes)
-    gs = rng.integers(0, G, n_writes)
-    sub = rng.integers(0, 8, n_writes)
-    lane = rng.integers(0, 128, n_writes)
-    vals = rng.integers(-32768, 32768, n_writes).astype(np.int32)
-    vals[:8] = -32768  # force the wraparound edge into the corpus
-    for r, g, s, l, v in zip(rows_w, gs, sub, lane, vals):
-        if dense64[r, g, s, l] != 0:
-            continue
-        dense64[r, g, s, l] = v
-        j, c = divmod(int(r), 64)
-        word = (int(v) & 0xFFFF) << (16 * (c % 2))
-        if word >= 1 << 31:  # two's-complement wrap (high half, bit 31)
-            word -= 1 << 32
-        packed[j * 32 + c // 2, g, s, l] |= word
-
-    expect = dense64.transpose(1, 2, 3, 0).reshape(-1, 64).astype(np.int16)
-    got_np = unpack16_rows(packed, xp=np)
-    assert got_np.dtype == np.int16
-    assert np.array_equal(got_np, expect)
-    got_j = np.asarray(jax.jit(
-        lambda d: unpack16_rows(d, xp=jnp))(jnp.asarray(packed)))
-    assert np.array_equal(got_j, expect)
+def test_device_resident_rate_batched_shape():
+    """device_resident_rate(batch>1) runs the merged-sweep program and
+    reports per-image numbers for the batch it ran."""
+    dec = sm.DeviceStreamDecoder(host_threads=1, interchange="bits")
+    r = dec.device_resident_rate(_synth_jpeg(32, 32, seed=50), iters=2,
+                                 reps=1, batch=4)
+    assert r["batch"] == 4 and r["interchange"] == "bits-batch4"
+    assert r["ms_per_image"] > 0

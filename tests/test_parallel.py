@@ -1,6 +1,6 @@
 """Mesh-parallel decode tests on the virtual 8-device CPU mesh.
 
-Validates the two TPU scaling axes against the single-device oracle:
+Validates the two mesh scaling axes against the single-device oracle:
 - batch DP: B same-geometry images sharded over "data"
 - MCU-row stripes with 1-row halo exchange over "stripe"
 
@@ -12,10 +12,10 @@ import pytest
 
 from conftest import REFTEST_IMAGES
 
-import jpeg_decoder_tpu.parser as P
-from jpeg_decoder_tpu import Decoder
-from jpeg_decoder_tpu.ops.pipeline import geometry_from_frame
-from jpeg_decoder_tpu.parallel import decode_batch_sharded, decode_striped, make_mesh
+import jpeg_decoder_jax.parser as P
+from jpeg_decoder_jax import Decoder
+from jpeg_decoder_jax.ops.pipeline import geometry_from_frame
+from jpeg_decoder_jax.parallel import decode_batch_sharded, decode_striped, make_mesh
 
 
 def _decode_to_stores(path):
@@ -77,8 +77,8 @@ def test_stripes_uneven_rows(stripe_mesh):
 def test_combined_dp_sp(stripe_mesh):
     """Batch DP x stripe SP composed in one shard_map program."""
     import jax
-    from jpeg_decoder_tpu.parallel import decode_striped_batch
-    from jpeg_decoder_tpu.parallel.mesh import make_mesh
+    from jpeg_decoder_jax.parallel import decode_striped_batch
+    from jpeg_decoder_jax.parallel.mesh import make_mesh
 
     mesh = make_mesh({"data": 2, "stripe": 4}, jax.devices("cpu"))
     frame, geometry, stores, qts, golden = _decode_to_stores(REFTEST_IMAGES / "rgb.jpg")

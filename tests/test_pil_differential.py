@@ -13,11 +13,15 @@ import io
 
 import numpy as np
 import pytest
-from PIL import Image
 
 from conftest import REFTEST_IMAGES, reftest_files
 
-from jpeg_decoder_tpu import CodingProcess, Decoder, JpegError, PixelFormat
+from jpeg_decoder_jax import CodingProcess, Decoder, JpegError, PixelFormat
+
+
+def _pil():
+    """Pillow, or a skip of the calling test when it is not installed."""
+    return pytest.importorskip("PIL.Image")
 
 
 def _comparable(path):
@@ -32,7 +36,7 @@ def _comparable(path):
     if info.coding_process == CodingProcess.LOSSLESS:
         return None  # PIL has no SOF3 support
     try:
-        im = Image.open(io.BytesIO(data))
+        im = _pil().open(io.BytesIO(data))
         im.load()
     except Exception:  # noqa: BLE001
         return None

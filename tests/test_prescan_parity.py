@@ -2,7 +2,7 @@
 
 The bits-interchange wire format — unstuffed segment layout, anchors, chunk
 ends, symbol counts — must be byte-for-byte identical whichever prescan built
-it, because the Pallas/XLA device decoders consume it positionally and the
+it, because both device entropy engines consume it positionally and the
 persistent compile cache keys on the bucketed shapes. The fixed per-segment
 24-byte pad (entropy.cc jt_prescan_baseline phase 1 / device_scan.py
 prescan_baseline) is the shared contract; this test pins it on both DRI
@@ -14,16 +14,20 @@ import os
 
 import numpy as np
 import pytest
-from PIL import Image
 
-import jpeg_decoder_tpu.entropy.native as native_mod
+import jpeg_decoder_jax.entropy.native as native_mod
 from conftest import REFTEST_IMAGES
 
-from jpeg_decoder_tpu import Decoder
-from jpeg_decoder_tpu.entropy.device_scan import (
+from jpeg_decoder_jax import Decoder
+from jpeg_decoder_jax.entropy.device_scan import (
     PrescanFallback,
     prescan_baseline,
 )
+
+
+def _pil():
+    """Pillow, or a skip of the calling test when it is not installed."""
+    return pytest.importorskip("PIL.Image")
 
 
 class _Capture:
@@ -51,9 +55,9 @@ class _Capture:
 
 def _prescan(data, disable_native: bool):
     if disable_native:
-        os.environ["JPEG_TPU_DISABLE_NATIVE"] = "1"
+        os.environ["JPEG_JAX_DISABLE_NATIVE"] = "1"
     else:
-        os.environ.pop("JPEG_TPU_DISABLE_NATIVE", None)
+        os.environ.pop("JPEG_JAX_DISABLE_NATIVE", None)
     native_mod.reset_native_cache()
     try:
         d = Decoder(data)
@@ -62,7 +66,7 @@ def _prescan(data, disable_native: bool):
         d._decode_entropy_only()
         return cap.scans
     finally:
-        os.environ.pop("JPEG_TPU_DISABLE_NATIVE", None)
+        os.environ.pop("JPEG_JAX_DISABLE_NATIVE", None)
         native_mod.reset_native_cache()
 
 
@@ -92,7 +96,7 @@ def _make_dri_jpeg(h, w, restart_rows=1, mode="RGB", seed=0):
     shape = (h, w, 3) if mode == "RGB" else (h, w)
     arr = rng.integers(0, 256, shape, dtype=np.uint8)
     buf = io.BytesIO()
-    Image.fromarray(arr, mode).save(buf, "JPEG", quality=85,
+    _pil().fromarray(arr, mode).save(buf, "JPEG", quality=85,
                                     restart_marker_rows=restart_rows)
     return buf.getvalue()
 
@@ -143,11 +147,11 @@ def test_dri_prescan_layout_parity(shape, mode, rows, seed):
 
 def _prescan_spec(data, spec_env: str):
     """Native prescan with the speculative-split threshold forced."""
-    os.environ["JPEG_TPU_SPEC_PRESCAN"] = spec_env
+    os.environ["JPEG_JAX_SPEC_PRESCAN"] = spec_env
     try:
         return _prescan(data, disable_native=False)
     finally:
-        os.environ.pop("JPEG_TPU_SPEC_PRESCAN", None)
+        os.environ.pop("JPEG_JAX_SPEC_PRESCAN", None)
 
 
 SPEC_CASES = [
@@ -175,7 +179,7 @@ def test_speculative_prescan_layout_parity(kind, spec):
         shape = spec["shape"] + ((3,) if spec["mode"] == "RGB" else ())
         arr = rng.integers(0, 256, shape, dtype=np.uint8)
         buf = io.BytesIO()
-        Image.fromarray(arr, spec["mode"]).save(buf, "JPEG", quality=92)
+        _pil().fromarray(arr, spec["mode"]).save(buf, "JPEG", quality=92)
         data = buf.getvalue()
     spec_scans = _prescan_spec(data, "4096")
     serial_scans = _prescan_spec(data, "0")
@@ -203,17 +207,17 @@ def test_restart_underrun_falls_back_to_oracle_error(disable_native):
     with pytest.raises(PrescanFallback):
         _prescan(data, disable_native=disable_native)
 
-    from jpeg_decoder_tpu.errors import FormatError
+    from jpeg_decoder_jax.errors import FormatError
     if disable_native:
-        os.environ["JPEG_TPU_DISABLE_NATIVE"] = "1"
+        os.environ["JPEG_JAX_DISABLE_NATIVE"] = "1"
     else:
-        os.environ.pop("JPEG_TPU_DISABLE_NATIVE", None)
+        os.environ.pop("JPEG_JAX_DISABLE_NATIVE", None)
     native_mod.reset_native_cache()
     try:
         with pytest.raises(FormatError, match="no marker found where RST3"):
             Decoder(data).decode_array()
     finally:
-        os.environ.pop("JPEG_TPU_DISABLE_NATIVE", None)
+        os.environ.pop("JPEG_JAX_DISABLE_NATIVE", None)
         native_mod.reset_native_cache()
 
 
@@ -221,8 +225,8 @@ def test_oversize_scan_layout_falls_back(monkeypatch):
     """Anchor bit offsets ride the wire as uint32: a >=2^29-byte unstuffed
     layout must route to the host path in the Python mirror (entropy.cc
     carries the same guard on write_off), not wrap silently."""
-    import jpeg_decoder_tpu.entropy.device_scan as ds
-    import jpeg_decoder_tpu.entropy.native as native_pkg
+    import jpeg_decoder_jax.entropy.device_scan as ds
+    import jpeg_decoder_jax.entropy.native as native_pkg
 
     # Force the Python-mirror walk: the native path would run its own
     # (C-side) guard against the REAL stream and never see the fake segs.

@@ -9,17 +9,21 @@ comparison; L16 is compared as u16.
 
 import numpy as np
 import pytest
-from PIL import Image
 
 from conftest import REFTEST_IMAGES, reftest_files
 
-from jpeg_decoder_tpu import CodingProcess, Decoder, PixelFormat
+from jpeg_decoder_jax import CodingProcess, Decoder, PixelFormat
+
+
+def _pil():
+    """Pillow, or a skip of the calling test when it is not installed."""
+    return pytest.importorskip("PIL.Image")
 
 
 def load_golden(png_path):
     """Golden PNG as (array, channels). RGBA collapses to RGB
     (`/root/reference/tests/reftest/mod.rs:122-136`)."""
-    im = Image.open(png_path)
+    im = _pil().open(png_path)
     if im.mode == "RGBA":
         arr = np.asarray(im)
         assert (arr[..., 3] == 255).all()
@@ -103,7 +107,7 @@ def test_reftest_jax_exact(jpg):
 @pytest.mark.parametrize(
     "jpg", reftest_files(), ids=lambda p: str(p.relative_to(REFTEST_IMAGES)))
 def test_reftest_jax_fast(jpg):
-    """Full-corpus fast (MXU-shaped) precision sweep: goldens within the
+    """Full-corpus fast (matmul IDCT) precision sweep: goldens within the
     reference tolerance (lossless stays bit-exact — fast only affects the
     DCT reconstruction tail)."""
     check_against_golden(Decoder(str(jpg), backend="jax", precision="fast"),

@@ -13,7 +13,7 @@ import pytest
 
 from conftest import crashtest_files, reftest_files
 
-from jpeg_decoder_tpu import Decoder, JpegError
+from jpeg_decoder_jax import Decoder, JpegError
 
 MANIFEST = json.loads(
     (pathlib.Path(__file__).parent / "regression_manifest.json").read_text())

@@ -11,10 +11,14 @@ import os
 
 import numpy as np
 import pytest
-from PIL import Image
 
-import jpeg_decoder_tpu.entropy.native as native_mod
-from jpeg_decoder_tpu import Decoder
+import jpeg_decoder_jax.entropy.native as native_mod
+from jpeg_decoder_jax import Decoder
+
+
+def _pil():
+    """Pillow, or a skip of the calling test when it is not installed."""
+    return pytest.importorskip("PIL.Image")
 
 
 def _make_dri_jpeg(h, w, restart_rows=1, quality=85, mode="RGB", seed=0):
@@ -24,7 +28,7 @@ def _make_dri_jpeg(h, w, restart_rows=1, quality=85, mode="RGB", seed=0):
     else:
         arr = rng.integers(0, 256, (h, w), dtype=np.uint8)
     buf = io.BytesIO()
-    Image.fromarray(arr, mode).save(buf, "JPEG", quality=quality,
+    _pil().fromarray(arr, mode).save(buf, "JPEG", quality=quality,
                                     restart_marker_rows=restart_rows)
     data = buf.getvalue()
     assert data.find(b"\xff\xdd") >= 0  # DRI present
@@ -32,12 +36,12 @@ def _make_dri_jpeg(h, w, restart_rows=1, quality=85, mode="RGB", seed=0):
 
 
 def _oracle(data: bytes) -> bytes:
-    os.environ["JPEG_TPU_DISABLE_NATIVE"] = "1"
+    os.environ["JPEG_JAX_DISABLE_NATIVE"] = "1"
     native_mod.reset_native_cache()
     try:
         return Decoder(data).decode()
     finally:
-        os.environ.pop("JPEG_TPU_DISABLE_NATIVE")
+        os.environ.pop("JPEG_JAX_DISABLE_NATIVE")
         native_mod.reset_native_cache()
 
 
@@ -67,9 +71,9 @@ def test_corrupted_restart_falls_back_consistently():
 
     def run(disable):
         if disable:
-            os.environ["JPEG_TPU_DISABLE_NATIVE"] = "1"
+            os.environ["JPEG_JAX_DISABLE_NATIVE"] = "1"
         else:
-            os.environ.pop("JPEG_TPU_DISABLE_NATIVE", None)
+            os.environ.pop("JPEG_JAX_DISABLE_NATIVE", None)
         native_mod.reset_native_cache()
         try:
             return ("OK", Decoder(data).decode())
@@ -79,7 +83,7 @@ def test_corrupted_restart_falls_back_consistently():
     try:
         assert run(False) == run(True)
     finally:
-        os.environ.pop("JPEG_TPU_DISABLE_NATIVE", None)
+        os.environ.pop("JPEG_JAX_DISABLE_NATIVE", None)
         native_mod.reset_native_cache()
 
 
@@ -88,7 +92,7 @@ def test_dri_image_through_stream_pipeline():
     restarts serially) — must match the plain decoder."""
     import jax
     jax.config.update("jax_platforms", "cpu")
-    from jpeg_decoder_tpu.models.stream import stage_host, _compiled_prefix_pipeline
+    from jpeg_decoder_jax.models.stream import stage_host, _compiled_prefix_pipeline
 
     data = _make_dri_jpeg(256, 384)
     golden = np.frombuffer(Decoder(data, precision="fast").decode(), np.uint8)

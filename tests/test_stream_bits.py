@@ -12,8 +12,8 @@ import pytest
 
 from conftest import REFTEST_IMAGES, reftest_files
 
-from jpeg_decoder_tpu import CodingProcess, Decoder
-from jpeg_decoder_tpu.models.stream import (
+from jpeg_decoder_jax import CodingProcess, Decoder
+from jpeg_decoder_jax.models.stream import (
     DeviceStreamDecoder,
     StagedBits,
     stage_host_bits,
@@ -44,7 +44,7 @@ def test_mesh_sharded_bits_stream():
     streams (group flush on key change / ineligible images)."""
     import jax
 
-    from jpeg_decoder_tpu.parallel import make_mesh
+    from jpeg_decoder_jax.parallel import make_mesh
 
     mesh = make_mesh({"data": 8}, jax.devices("cpu"))
     rgb = (REFTEST_IMAGES / "rgb.jpg").read_bytes()
@@ -95,38 +95,6 @@ def test_large_image_bytes_per_pixel():
     assert nbytes / px < 0.3, f"{nbytes / px:.3f} B/px"
 
 
-def test_group_key_separates_wire_formats(monkeypatch):
-    """Images staged under different JPEG_TPU_WIRE values must never merge
-    into one batched dispatch: their combined-array layouts differ and the
-    words/slots mergers unpack different tuple shapes."""
-    import jpeg_decoder_tpu.models.stream as S
-
-    monkeypatch.setattr(S, "_bits_pallas_enabled", lambda: True)
-    data = (REFTEST_IMAGES / "rgb.jpg").read_bytes()
-    staged = {}
-    for wire in ("slots", "words", "words-packed", "delta"):
-        monkeypatch.setenv("JPEG_TPU_WIRE", wire)
-        staged[wire] = stage_host_bits(data)
-        assert staged[wire].pallas[0] is not None
-        assert staged[wire].pallas[0][2] == wire
-    # combined-array arity per wire: slots 3 (tiles), words 4, packed 3,
-    # delta 3 (words + per-chunk u32 + class counts) — the group key's wire
-    # string, not arity, keeps same-arity wires apart.
-    assert len(staged["slots"].pallas[0][0]) == 3
-    assert len(staged["words"].pallas[0][0]) == 4
-    assert len(staged["words-packed"].pallas[0][0]) == 3
-    assert len(staged["delta"].pallas[0][0]) == 3
-    keys = [S._bits_group_key(staged[w])
-            for w in ("slots", "words", "words-packed", "delta")]
-    assert all(k is not None for k in keys)
-    assert len(set(keys)) == 4
-    k_words = keys[1]
-    # and a same-wire restage still groups
-    monkeypatch.setenv("JPEG_TPU_WIRE", "words")
-    again = stage_host_bits(data)
-    assert S._bits_group_key(again) == k_words
-
-
 def test_progressive_transcodes_to_bits():
     """Progressive images re-encode into the bits interchange (transcode.py)
     rather than shipping prefix coefficients."""
@@ -140,7 +108,7 @@ def test_lossless_stages_for_device():
     recurrence runs on device."""
     import pytest
 
-    from jpeg_decoder_tpu.models.stream import StagedLossless
+    from jpeg_decoder_jax.models.stream import StagedLossless
 
     path = REFTEST_IMAGES / "lossless" / "1" / "jpeg_lossless_sel1.jpg"
     if not path.exists():
@@ -192,8 +160,8 @@ def test_lossless_batch_and_mesh_parity(decoders):
 
     import jax
     if len(jax.devices()) >= 4:
-        from jpeg_decoder_tpu.models.stream import DeviceStreamDecoder
-        from jpeg_decoder_tpu.parallel.mesh import make_mesh
+        from jpeg_decoder_jax.models.stream import DeviceStreamDecoder
+        from jpeg_decoder_jax.parallel.mesh import make_mesh
         mesh = make_mesh({"data": 4})
         sharded = DeviceStreamDecoder(host_threads=2, mesh=mesh)
         outs = sharded.decode_stream([data] * 4, batch_size=4)
@@ -259,86 +227,50 @@ def test_scaled_decode_bits_small_scales(decoders, name, scale_to):
     assert int(np.abs(got.astype(int) - ref.astype(int)).max()) <= 3
 
 
-def test_mesh_pallas_pipeline_traces(monkeypatch):
-    """Trace-level regression for the shard_map + pallas_call composition:
-    jax's VMA verifier (check_vma, default on) rejects pallas_call
-    out_shapes inside a shard_map body at TRACE time — found on hardware
-    (tools/tpu_validate.py mesh section aborted), invisible to the routing
-    spy below. eval_shape drives the exact product builder through the
-    trace without executing the (far too slow) interpret-mode kernel."""
+def test_mesh_kernel_pipeline_runs(monkeypatch):
+    """The Pallas kernel inside the mesh program's shard_map (interpret
+    mode): each device merges its local images into one sweep; outputs
+    equal the oracle."""
+    import functools
+
     import jax
 
-    import jpeg_decoder_tpu.models.stream as S
-    from jpeg_decoder_tpu.parallel import make_mesh
+    from jpeg_decoder_jax import platform
+    from jpeg_decoder_jax.entropy import triton_decode
+    from jpeg_decoder_jax.parallel import make_mesh
+    from jpeg_decoder_jax.testing.synth import make_jpeg
 
-    monkeypatch.setenv("JPEG_TPU_BITS_PALLAS", "interpret")
-    data = (REFTEST_IMAGES / "rgb.jpg").read_bytes()
-    st = stage_host_bits(data)
-    assert st.pallas and st.pallas[0] is not None
-    scan0, kept = st.scans[0]
-    entry = st.pallas[0]
-    batch = ndev = 4
-
-    n_combined = len(entry[0])
-    stacked = tuple(np.stack([entry[0][j]] * batch)
-                    for j in range(n_combined))
-    ncomp = len(st.qts)
-    qts_b = tuple(np.stack([st.qts[c]] * batch) for c in range(ncomp))
-
-    mesh = make_mesh({"data": ndev}, jax.devices("cpu")[:ndev])
-    fn = S._compiled_bits_pipeline_mesh_pallas(
-        scan0.plan, kept, batch, tuple(s[:3] for s in entry[1]),
-        len(scan0.tab_maxcode), scan0.comp_to_upair, ncomp, st.geometry,
-        "interleaved", S._wire_flag(entry[2]), n_combined,
-        mesh, "data", interpret=True)
-    out = jax.eval_shape(fn, stacked, scan0.tab_maxcode, scan0.tab_delta,
-                         scan0.tab_values.view(np.int32), qts_b)
-    assert out.shape[0] == batch and out.dtype == np.uint8
+    monkeypatch.setattr(platform, "entropy_engine", lambda on=None: "triton")
+    monkeypatch.setattr(triton_decode, "build_triton_sweep", functools.partial(
+        triton_decode.build_triton_sweep, interpret=True))
+    data = make_jpeg("420", 32, 16, seed=3)
+    mesh = make_mesh({"data": 2}, jax.devices("cpu")[:2])
+    dec = DeviceStreamDecoder(host_threads=1, interchange="bits", mesh=mesh,
+                              precision="exact")
+    outs = dec.decode_stream([data] * 4, batch_size=4)
+    assert dict(dec.counts) == {"dispatches": 1, "sweeps": 1}
+    gold = Decoder(data, backend="numpy").decode_array()
+    for out in outs:
+        assert np.array_equal(np.asarray(out), gold)
 
 
-def test_mesh_bits_routes_to_pallas_engine(monkeypatch):
-    """Mesh DP routing for the Pallas engine: when every image in a mesh
-    group carries Pallas packs of one bucketed shape+wire, the dispatcher
-    must take _decode_group_bits_mesh_pallas (per-image packed buffers
-    stacked on the sharded image axis). The kernel execution itself is
-    hardware-validated (tools/tpu_validate.py mesh section) — interpret
-    mode is far too slow for CI — so this test spies on the route and
-    checks outputs through the per-image fallback."""
+def test_mesh_bits_group_is_one_sweep():
+    """Mesh DP routing: a group of same-plan images stacks on the sharded
+    image axis and runs one sweep per dispatch (a 4-image group plus a
+    1-image tail here); outputs equal the prefix interchange."""
     import jax
 
-    import jpeg_decoder_tpu.models.stream as S
-    from jpeg_decoder_tpu.parallel import make_mesh
+    from jpeg_decoder_jax.parallel import make_mesh
+    from jpeg_decoder_jax.testing.synth import make_jpeg
 
-    monkeypatch.setenv("JPEG_TPU_BITS_PALLAS", "interpret")
-    data = (REFTEST_IMAGES / "rgb.jpg").read_bytes()
-
-    st = stage_host_bits(data)
-    assert st.pallas and st.pallas[0] is not None  # staging attaches packs
-
-    called = {}
-
-    def spy(self, group, entries, batch, kept):
-        called.setdefault("groups", []).append(len(group))
-        called.setdefault("batches", []).append(batch)
-        called.setdefault("shapes", set()).update(
-            (tuple(s[:3] for s in e[1]), e[2]) for e in entries)
-        outs = []
-        for g in group:   # XLA per-image fallback for output correctness
-            g.pallas = None
-            outs.append(self.decode_one(g))
-        return outs
-
-    monkeypatch.setattr(S.DeviceStreamDecoder,
-                        "_decode_group_bits_mesh_pallas", spy)
+    data = make_jpeg("420", 48, 32, seed=4)
     mesh = make_mesh({"data": 4}, jax.devices("cpu")[:4])
-    sharded = S.DeviceStreamDecoder(host_threads=1, interchange="bits",
-                                    mesh=mesh)
-    plain = S.DeviceStreamDecoder(host_threads=1, interchange="prefix")
+    sharded = DeviceStreamDecoder(host_threads=1, interchange="bits",
+                                  mesh=mesh)
+    plain = DeviceStreamDecoder(host_threads=1, interchange="prefix")
     ref = np.asarray(plain.decode_stream([data])[0])
     got = sharded.decode_stream([data] * 5, batch_size=4)
-    assert called["groups"] == [4, 1]   # full group + tail, both routed
-    assert all(b % 4 == 0 for b in called["batches"])
-    assert len(called["shapes"]) == 1   # uniformity precondition held
+    assert dict(sharded.counts) == {"dispatches": 2, "sweeps": 2}
     assert len(got) == 5
     for out in got:
         assert np.array_equal(ref, np.asarray(out))

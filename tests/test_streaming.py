@@ -16,9 +16,9 @@ import pathlib
 import numpy as np
 import pytest
 
-import jpeg_decoder_tpu as jd
-from jpeg_decoder_tpu import Decoder
-from jpeg_decoder_tpu.errors import FormatError, IoError, JpegError
+import jpeg_decoder_jax as jd
+from jpeg_decoder_jax import Decoder
+from jpeg_decoder_jax.errors import FormatError, IoError, JpegError
 
 IMAGES = pathlib.Path("/root/reference/tests/reftest/images")
 
@@ -108,7 +108,7 @@ def test_streaming_truncated_raises_typed():
 
 def test_streaming_jax_backend():
     """Streaming feeds the device reconstruction path too: bounded host
-    buffering with batched TPU/XLA reconstruct."""
+    buffering with batched XLA reconstruct."""
     data = (IMAGES / "rgb.jpg").read_bytes()
     want = Decoder(data, backend="numpy", precision="fast").decode_array()
     d = Decoder(ChunkReader(data), backend="jax", precision="fast",

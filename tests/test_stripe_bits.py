@@ -6,25 +6,21 @@ recon runs the exact integer kernels), across geometries that exercise every
 seam mechanism — the straddling chunk (anchors never land on MCU-row
 boundaries), the cross-stripe DC carry, aligned restart segmentation, and
 the V2 chroma halo. The XLA engine runs compiled here (8-device virtual CPU
-mesh); the Pallas engine's kernel is interpret-only on CPU (slow-gated walk
-below, ci_matrix) — its stripe-specific host packing is pinned against
-pack_classes per stripe in test_stripe_packer_matches_pack_classes.
+mesh); the Pallas kernel runs in the interpreter on a small image.
 """
 
 import io
-import os
 
 import numpy as np
 import pytest
 
-from jpeg_decoder_tpu import Decoder
-from jpeg_decoder_tpu.models.stream import DeviceStreamDecoder, stage_host_bits
-from jpeg_decoder_tpu.parallel.stripe_bits import (
+from jpeg_decoder_jax import Decoder
+from jpeg_decoder_jax.models.stream import DeviceStreamDecoder, stage_host_bits
+from jpeg_decoder_jax.parallel.stripe_bits import (
     decode_bits_striped,
     split_anchored_stripes,
 )
 
-PIL = pytest.importorskip("PIL.Image")
 
 
 def _mesh(n):
@@ -37,6 +33,7 @@ def _mesh(n):
 
 
 def _jpeg(h, w, mode="RGB", seed=0, **save_kw):
+    PIL = pytest.importorskip("PIL.Image")
     rng = np.random.default_rng(seed)
     if mode == "L":
         im = PIL.fromarray(rng.integers(0, 255, (h, w)).astype(np.uint8), "L")
@@ -89,6 +86,7 @@ def test_giant_image_30mpix():
     decodes with its entropy decode sharded across 8 devices, bit-exact vs
     the single-device oracle (VERDICT round-4 item 1's done-bar). Smooth
     synthesized content keeps the host staging/oracle cost test-sized."""
+    PIL = pytest.importorskip("PIL.Image")
     h, w = 4800, 6400                                  # 30.7 Mpix
     rng = np.random.default_rng(1)
     base = rng.integers(0, 255, (h // 16, w // 16, 3)).astype(np.uint8)
@@ -131,7 +129,7 @@ def test_decoder_method_and_fallback():
     # single-device pipeline, still correct within fast-precision tolerance.
     data2 = _jpeg(16, 16, "RGB", seed=4, subsampling=2)
     st2 = stage_host_bits(data2)
-    from jpeg_decoder_tpu.parallel.stripe_bits import split_anchored_stripes
+    from jpeg_decoder_jax.parallel.stripe_bits import split_anchored_stripes
     assert split_anchored_stripes(st2.scans[0][0], 4) is None
     out2 = np.asarray(dec.decode_striped(data2))
     gold2 = Decoder(data2, backend="numpy").decode_array()
@@ -146,7 +144,7 @@ def test_dp_sp_bits_batch():
     import jax
     from jax.sharding import Mesh
 
-    from jpeg_decoder_tpu.parallel.stripe_bits import decode_bits_striped_batch
+    from jpeg_decoder_jax.parallel.stripe_bits import decode_bits_striped_batch
 
     devs = jax.devices()
     if len(devs) < 8:
@@ -162,95 +160,20 @@ def test_dp_sp_bits_batch():
         assert np.array_equal(np.asarray(out[i]), gold), f"image {i}"
 
 
-def test_stripe_packer_matches_pack_classes(monkeypatch):
-    """The stripe words-wire packer must agree, per stripe, with
-    pack_classes(wire="words") run on that stripe's rebased sub-scan —
-    same class rule, same meta packing, same bases — for every real chunk.
-    (Buckets differ by construction: the stripe packer buckets globally so
-    one shard_map program covers every stripe; class collapse is pinned off
-    — the stripe packer keeps the span classes so its layout stays uniform
-    across stripes.)"""
-    monkeypatch.setenv("JPEG_TPU_CLASS_COLLAPSE", "0")
-    from types import SimpleNamespace
+def test_triton_stripe_engine_interpret(monkeypatch):
+    """The stripe pipeline on the Pallas kernel (interpret mode): straddling
+    chunks rebased to negative blocks, the DC seam carry and the halo recon
+    on a 2-stripe mesh — bit-exact vs the oracle."""
+    import functools
 
-    from jpeg_decoder_tpu.entropy.pallas_decode import pack_classes
-    from jpeg_decoder_tpu.parallel.stripe_bits import (_pack_stripes_words,
-                                                       _stripe_ranges)
+    from jpeg_decoder_jax.entropy import triton_decode
 
-    data = _jpeg(488, 648, "RGB", seed=7, subsampling=2)
-    st = stage_host_bits(data)
-    scan0, _ = st.scans[0]
-    n_stripes = 8
-    split = split_anchored_stripes(scan0, n_stripes)
-    assert split is not None and split.pallas is not None
-    (sb_s, meta_s, base_s), class_shapes = split.pallas
-    nb_local = split.n_blocks_local
-
-    n = scan0.n_items
-    blk = scan0.anchor_block[:n].astype(np.int64)
-    ranges = _stripe_ranges(blk, n, nb_local, n_stripes, scan0.n_blocks)
-
-    for d, (i0, i1) in enumerate(ranges):
-        if i1 <= i0:
-            continue
-        b0 = d * nb_local
-        m = i1 - i0
-        w0 = int(scan0.anchor_bits[i0]) >> 5
-        fill = int(min(nb_local, max(scan0.n_blocks - b0, 0)))
-        ablk = np.full(m + 1, b0 + fill, np.int64)
-        ablk[:m] = blk[i0:i1]
-        sub = SimpleNamespace(
-            n_items=m,
-            anchor_bits=(scan0.anchor_bits[i0:i1].astype(np.int64)
-                         - (w0 << 5)).astype(np.uint32),
-            chunk_end=(scan0.chunk_end[i0:i1].astype(np.int64)
-                       - (w0 << 5)).astype(np.uint32),
-            chunk_syms=scan0.chunk_syms[i0:i1],
-            anchor_block=(ablk - b0).astype(np.int32),
-            anchor_slot=scan0.anchor_slot[i0:i1],
-            n_blocks=nb_local,
-            tab_maxcode=scan0.tab_maxcode,
-            words=scan0.words,
-        )
-        packs = pack_classes(sub, wire="words")
-        assert packs is not None
-        # Reference layout per class from pack_classes (real items only).
-        ref = {p.slot_words: p for p in packs}
-        off = 0
-        for (sw, _sm, nb) in class_shapes:
-            got_sb = sb_s[d, off:off + nb]
-            got_meta = meta_s[d, off:off + nb]
-            got_base = base_s[d, off:off + nb]
-            p = ref.get(sw)
-            if p is None:
-                assert not np.any(got_meta), "phantom chunks in empty class"
-                off += nb
-                continue
-            k = p.n_items
-            assert np.array_equal(got_meta[:k], p.meta.reshape(-1)[:k])
-            assert np.array_equal(got_base[:k],
-                                  p.block_base.reshape(-1)[:k])
-            assert np.array_equal(got_sb[:k],
-                                  (p.ab.reshape(-1)[:k].view(np.uint32)
-                                   >> 3).view(np.int32))
-            assert not np.any(got_meta[k:nb])
-            off += nb
-
-
-slow = pytest.mark.skipif(
-    not os.environ.get("JPEG_TPU_SLOW_TESTS"),
-    reason="interpret-mode kernel walk is minutes-slow (ci_matrix runs it); "
-           "compiled Pallas stripe parity needs a multi-chip TPU mesh")
-
-
-@slow
-def test_pallas_stripe_engine_interpret():
-    """Full Pallas stripe pipeline (words wire + fused assembly with the DC
-    seam carry + halo recon) in interpret mode on a 2-stripe mesh."""
+    monkeypatch.setattr(triton_decode, "build_triton_sweep", functools.partial(
+        triton_decode.build_triton_sweep, interpret=True))
     mesh = _mesh(2)
-    data = _jpeg(32, 32, "RGB", seed=9, subsampling=2)
+    data = _jpeg(48, 64, "RGB", seed=9, subsampling=2)
     st = stage_host_bits(data)
-    out = decode_bits_striped(st, mesh, engine="pallas", interpret=True)
+    out = decode_bits_striped(st, mesh, engine="triton")
     assert out is not None
     gold = Decoder(data, backend="numpy").decode_array()
     assert np.array_equal(np.asarray(out), gold)

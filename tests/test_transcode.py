@@ -14,18 +14,22 @@ import os
 
 import numpy as np
 import pytest
-from PIL import Image
 
 from conftest import REFTEST_IMAGES, reftest_files
 
-from jpeg_decoder_tpu import CodingProcess, Decoder
-from jpeg_decoder_tpu.entropy.device_scan import decode_anchored_device
-from jpeg_decoder_tpu.entropy.transcode import (
+from jpeg_decoder_jax import CodingProcess, Decoder
+from jpeg_decoder_jax.entropy.device_scan import decode_anchored_device
+from jpeg_decoder_jax.entropy.transcode import (
     TranscodeFallback,
     _encode_luts,
     transcode_scan,
     transcode_tables,
 )
+
+
+def _pil():
+    """Pillow, or a skip of the calling test when it is not installed."""
+    return pytest.importorskip("PIL.Image")
 
 
 def _oracle_stores(path_or_bytes):
@@ -52,7 +56,7 @@ def _roundtrip_assert(frame, stores, label):
 def test_tables_roundtrip_all_symbols():
     """Every encoder (code, len) must decode back to its symbol through the
     same 16-bit LUT the device uses."""
-    from jpeg_decoder_tpu.entropy.device_scan import build_decode_lut16
+    from jpeg_decoder_jax.entropy.device_scan import build_decode_lut16
 
     dc_table, ac_table = transcode_tables()
     dc_code, dc_len, ac_code, ac_len = _encode_luts()
@@ -95,7 +99,7 @@ def _tiny_frame(nblocks_w=2, nblocks_h=2):
     """A real grayscale frame of the requested block grid (via PIL)."""
     arr = np.zeros((nblocks_h * 8, nblocks_w * 8), np.uint8)
     buf = io.BytesIO()
-    Image.fromarray(arr, "L").save(buf, "JPEG", quality=95)
+    _pil().fromarray(arr, "L").save(buf, "JPEG", quality=95)
     d = Decoder(buf.getvalue())
     d._decode_entropy_only()
     return d.frame
@@ -154,7 +158,7 @@ def test_native_mirror_byte_identity(name):
     """The C++ encoder (entropy.cc jt_transcode_scan) and the Python mirror
     must produce identical staged layouts — the repo's native/oracle
     invariant extended to the encode direction."""
-    import jpeg_decoder_tpu.entropy.native as native_mod
+    import jpeg_decoder_jax.entropy.native as native_mod
 
     path = REFTEST_IMAGES / name
     if not path.exists():
@@ -164,15 +168,15 @@ def test_native_mirror_byte_identity(name):
 
     def staged_for(disable):
         if disable:
-            os.environ["JPEG_TPU_DISABLE_NATIVE"] = "1"
+            os.environ["JPEG_JAX_DISABLE_NATIVE"] = "1"
         else:
-            os.environ.pop("JPEG_TPU_DISABLE_NATIVE", None)
+            os.environ.pop("JPEG_JAX_DISABLE_NATIVE", None)
         native_mod.reset_native_cache()
         try:
             frame, stores = _oracle_stores(path)
             return transcode_scan(frame, stores)[1]
         finally:
-            os.environ.pop("JPEG_TPU_DISABLE_NATIVE", None)
+            os.environ.pop("JPEG_JAX_DISABLE_NATIVE", None)
             native_mod.reset_native_cache()
 
     sn, sp = staged_for(False), staged_for(True)
@@ -188,7 +192,7 @@ def test_native_mirror_byte_identity(name):
 def test_native_extreme_values_matches_mirror():
     """Full-range random stores (the extended alphabet's edge categories)
     through both encoders: identical layouts, exact roundtrip."""
-    import jpeg_decoder_tpu.entropy.native as native_mod
+    import jpeg_decoder_jax.entropy.native as native_mod
 
     if native_mod.get_native() is None:
         pytest.skip("native engine unavailable")
@@ -201,12 +205,12 @@ def test_native_extreme_values_matches_mirror():
     stores = [store.reshape(-1)]
 
     _, sn = transcode_scan(frame, stores)
-    os.environ["JPEG_TPU_DISABLE_NATIVE"] = "1"
+    os.environ["JPEG_JAX_DISABLE_NATIVE"] = "1"
     native_mod.reset_native_cache()
     try:
         _, sp = transcode_scan(frame, stores)
     finally:
-        os.environ.pop("JPEG_TPU_DISABLE_NATIVE", None)
+        os.environ.pop("JPEG_JAX_DISABLE_NATIVE", None)
         native_mod.reset_native_cache()
     for f in ("words", "anchor_bits", "anchor_block", "anchor_slot",
               "chunk_end", "chunk_syms"):
@@ -221,7 +225,7 @@ def test_progressive_corpus_pixel_parity():
     (which transcodes) must match the host fast-precision decode exactly."""
     import jax
     jax.config.update("jax_platforms", "cpu")
-    from jpeg_decoder_tpu.models.stream import DeviceStreamDecoder, StagedBits, stage_host_bits
+    from jpeg_decoder_jax.models.stream import DeviceStreamDecoder, StagedBits, stage_host_bits
 
     dec = DeviceStreamDecoder(interchange="bits")
     ran = 0
@@ -251,7 +255,7 @@ def test_progressive_scaled_decode_parity():
     """Transcoded bits path under IDCT-domain scaling."""
     import jax
     jax.config.update("jax_platforms", "cpu")
-    from jpeg_decoder_tpu.models.stream import DeviceStreamDecoder, StagedBits, stage_host_bits
+    from jpeg_decoder_jax.models.stream import DeviceStreamDecoder, StagedBits, stage_host_bits
 
     path = REFTEST_IMAGES / "progressive3.jpg"
     d = Decoder(str(path), precision="fast")
@@ -264,25 +268,29 @@ def test_progressive_scaled_decode_parity():
     assert (out == golden).all()
 
 
-@pytest.mark.skipif(
-    not os.environ.get("JPEG_TPU_SLOW_TESTS"),
-    reason="interpret-mode kernel walk is minutes-slow; set "
-           "JPEG_TPU_SLOW_TESTS=1 (tools/ci_matrix.sh does) or use "
-           "tools/tpu_validate.py for compiled parity")
-def test_pallas_interpret_transcoded_scan():
+def test_triton_interpret_transcoded_scan():
     """The Pallas kernel decodes a transcoded stream (synthesized tables,
     extended DC categories) bit-exactly — interpret mode, tiny image."""
     import jax
-    jax.config.update("jax_platforms", "cpu")
-    from jpeg_decoder_tpu.entropy.pallas_decode import decode_anchored_pallas
 
-    path = REFTEST_IMAGES / "mozilla/jpg-size-16x16.jpg"
-    frame, stores = _oracle_stores(path)
-    scan, staged = transcode_scan(frame, stores)
-    out = decode_anchored_pallas(staged, interpret=True)
-    assert out is not None, "transcoded scan must be Pallas-eligible"
-    for c, (a, b) in enumerate(zip(out, stores)):
-        assert (np.asarray(a) == b).all(), f"comp {c}"
+    from jpeg_decoder_jax.entropy.device_scan import build_xla_sweep
+    from jpeg_decoder_jax.entropy.triton_decode import build_triton_sweep
+    from jpeg_decoder_jax.models.stream import StagedBits, stage_host_bits
+    from jpeg_decoder_jax.testing.synth import make_jpeg
+
+    st = stage_host_bits(make_jpeg("progressive", 48, 32, seed=2))
+    assert isinstance(st, StagedBits)
+    staged = st.scans[0][0]
+    assert staged.luts_key[0] == "transcode"
+    plan = staged.plan
+    args = (staged.words, staged.anchor_bits, staged.anchor_block,
+            staged.anchor_slot, staged.luts)
+    ref = jax.jit(build_xla_sweep(plan.n_blocks, plan.s_max,
+                                  tuple(plan.pattern)))(*args)
+    got = jax.jit(build_triton_sweep(plan.n_blocks, plan.s_max,
+                                     tuple(plan.pattern),
+                                     interpret=True))(*args)
+    assert np.array_equal(np.asarray(ref), np.asarray(got))
 
 
 def test_batched_stream_groups_transcoded_images():
@@ -290,14 +298,14 @@ def test_batched_stream_groups_transcoded_images():
     batched bits dispatch must group them; outputs match singles."""
     import jax
     jax.config.update("jax_platforms", "cpu")
-    from jpeg_decoder_tpu.models.stream import DeviceStreamDecoder
+    from jpeg_decoder_jax.models.stream import DeviceStreamDecoder
 
     rng = np.random.default_rng(1)
     sources = []
     for i in range(3):
         arr = rng.integers(0, 256, (40, 56, 3), np.uint8)
         buf = io.BytesIO()
-        Image.fromarray(arr, "RGB").save(buf, "JPEG", quality=90,
+        _pil().fromarray(arr, "RGB").save(buf, "JPEG", quality=90,
                                          progressive=True)
         sources.append(buf.getvalue())
 

@@ -11,7 +11,7 @@ cd "$(dirname "$0")/.."
 
 SO=/tmp/libjtentropy_asan.so
 g++ -O1 -g -fwrapv -fsanitize=address,undefined -fno-sanitize-recover=undefined \
-    -shared -fPIC -std=c++17 -o "$SO" jpeg_decoder_tpu/entropy/cpp/entropy.cc \
+    -shared -fPIC -std=c++17 -o "$SO" jpeg_decoder_jax/entropy/cpp/entropy.cc \
     -lpthread || exit 1
 
 ASAN_LIB=$(g++ -print-file-name=libasan.so)
@@ -19,7 +19,7 @@ UBSAN_LIB=$(g++ -print-file-name=libubsan.so)
 export LD_PRELOAD="$ASAN_LIB $UBSAN_LIB"
 export ASAN_OPTIONS=detect_leaks=0
 export UBSAN_OPTIONS=halt_on_error=1:print_stacktrace=1
-export JPEG_TPU_NATIVE_SO="$SO"
+export JPEG_JAX_NATIVE_SO="$SO"
 export PYTHONPATH=
 
 FAILED=0
@@ -31,7 +31,7 @@ run() {
 
 run "corpora" python - <<'PY'
 import glob
-import jpeg_decoder_tpu as jd
+import jpeg_decoder_jax as jd
 for root in ("/root/reference/tests/reftest/images",
              "/root/reference/tests/crashtest/images"):
     n = 0

@@ -43,7 +43,7 @@ CASES = [
 
 
 def run_case(data: bytes, op: str, backend: str, samples: int = 10) -> float:
-    from jpeg_decoder_tpu import Decoder
+    from jpeg_decoder_jax import Decoder
 
     best = float("inf")
     for _ in range(samples):
@@ -58,10 +58,9 @@ def run_case(data: bytes, op: str, backend: str, samples: int = 10) -> float:
 
 
 def run_stream(samples: int, as_json: bool, interchange: str = "prefix") -> None:
-    """Per-stage timing of the decode-to-device stream (StageTimer) — the
-    command that regenerates BASELINE.md's stage table."""
-    from jpeg_decoder_tpu.models.stream import DeviceStreamDecoder
-    from jpeg_decoder_tpu.utils.timing import StageTimer
+    """Per-stage timing of the decode-to-device stream (StageTimer)."""
+    from jpeg_decoder_jax.models.stream import DeviceStreamDecoder
+    from jpeg_decoder_jax.utils.timing import StageTimer
 
     data = open(f"{BENCHES}/large_image.jpg", "rb").read()
     timer = StageTimer()
@@ -125,7 +124,7 @@ def main() -> None:
 
     if args.smoke:
         # Perf-path import/staging smoke: both interchange stagers must run.
-        from jpeg_decoder_tpu.models.stream import stage_host, stage_host_bits
+        from jpeg_decoder_jax.models.stream import stage_host, stage_host_bits
         data = open(f"{BENCHES}/large_image.jpg", "rb").read()
         for name, fn in (("stage_host", stage_host),
                          ("stage_host_bits", stage_host_bits)):

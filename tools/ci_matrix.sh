@@ -3,7 +3,7 @@
 # (`/root/reference/.github/workflows/rust.yml`: {toolchains} x {features} x
 # {ISAs}). The axes that exist in this framework:
 #
-#   1. native C++ entropy engine        vs  pure-Python oracle (JPEG_TPU_DISABLE_NATIVE)
+#   1. native C++ entropy engine        vs  pure-Python oracle (JPEG_JAX_DISABLE_NATIVE)
 #   2. jax on CPU                       vs  jax on the default platform
 #   3. single device                    vs  8-device virtual mesh (parallel tests)
 #
@@ -23,27 +23,8 @@ run() {
 run "native+cpu8" python -m pytest tests/ -x -q "$@"
 
 # 2. Native disabled: every path through the pure-Python entropy oracle.
-run "oracle+cpu8" env JPEG_TPU_DISABLE_NATIVE=1 \
+run "oracle+cpu8" env JPEG_JAX_DISABLE_NATIVE=1 \
     python -m pytest tests/ -x -q "$@"
-
-# 2b. Interpret-mode Pallas kernel walks, isolated AND one process per
-#     file-batch: ~10 min/case on CPU (the kernel body runs in Python per
-#     step), and after several giant interpret compiles in one process the
-#     XLA-CPU compiler aborts mid-compile (2026-08-19: case 5 of 6 died
-#     with SIGSEGV/SIGABRT in backend_compile_and_load, yet passes alone;
-#     tests also clear jax caches between cases now). Compiled-mode kernel
-#     parity runs on hardware in tools/tpu_validate.py.
-INTERPRET_OK=1
-while IFS= read -r tid; do
-  if ! env JPEG_TPU_SLOW_TESTS=1 python -m pytest "$tid" -x -q "$@"; then
-    INTERPRET_OK=0
-  fi
-done < <(env JPEG_TPU_SLOW_TESTS=1 python -m pytest \
-           tests/test_pallas_decode.py tests/test_pallas.py \
-           tests/test_stripe_bits.py::test_pallas_stripe_engine_interpret \
-           --collect-only -q 2>/dev/null | grep '::')
-if [ "$INTERPRET_OK" = 1 ]; then echo "=== [interpret-slow] PASS";
-else echo "=== [interpret-slow] FAIL"; FAILED=1; fi
 
 # 3. Multichip dryrun at two mesh sizes (clean env: no conftest, honours
 #    whatever platform the driver would use; forced to CPU here).
@@ -58,7 +39,7 @@ done
 #     collectives, bit-exact (SURVEY.md §4 multi-host decode tests).
 run "multiproc2" env PYTHONPATH= python tools/multiproc_mesh.py
 
-# 4. Compile-check the single-chip entry point.
+# 4. Compile-check the single-device entry point.
 run "entry" env PYTHONPATH= JAX_PLATFORMS=cpu \
     python -c "import __graft_entry__ as g; fn, args = g.entry(); fn(*args)"
 
@@ -69,59 +50,22 @@ run "fuzz200" python tools/fuzz.py 200 1
 #    oracle stores bit-exact; CPU/XLA engine).
 run "fuzzdev200" env PYTHONPATH= python tools/fuzz.py 200 1 --device
 
-# 7. Gather-assembler configuration (JPEG_TPU_STRUCT_ASM=0 forces the
-#    general-gather assembly path over the structured closed form).
-run "gatherasm" env JPEG_TPU_STRUCT_ASM=0 python -m pytest \
-    tests/test_device_entropy.py tests/test_stream_bits.py \
-    tests/test_pallas_decode.py -x -q "$@"
-
 # 8. Speculative prescan forced onto every baseline stream (4 KiB threshold):
 #    anchors must stay byte-identical under the parallel split.
-run "specprescan" env JPEG_TPU_SPEC_PRESCAN=4096 python -m pytest \
+run "specprescan" env JPEG_JAX_SPEC_PRESCAN=4096 python -m pytest \
     tests/test_prescan_parity.py tests/test_device_entropy.py \
     tests/test_stream_bits.py -x -q "$@"
 
 # 8b. ...and under mutation: the spec splicer must accept-or-fallback with
 #     bit-exact stores on malformed streams too (the default 256 KiB
 #     threshold means plain fuzzdev never reaches the splice logic).
-run "fuzzdev-spec" env PYTHONPATH= JPEG_TPU_SPEC_PRESCAN=4096 \
+run "fuzzdev-spec" env PYTHONPATH= JPEG_JAX_SPEC_PRESCAN=4096 \
     python tools/fuzz.py 150 11 --device
 
-# 8c. Fused assembly forced on (the TPU default; CPU default is the
-#     structured nat path) — traces the raw-sweep + rowmap-composition
-#     builders through the stream/mesh trace tests and runs the direct
-#     fused-vs-nat parity test.
-run "fusedasm" env JPEG_TPU_FUSED_ASM=1 python -m pytest \
-    tests/test_stream_bits.py tests/test_device_entropy.py -x -q "$@"
-
-# 8d. Unpacked dense emission forced (pack16 became the default in round
-#     4) — keeps the legacy kernel emission + transpose-narrow path green.
-#     NB: this leg exercises the UNPACKED path; packed-path bit-exactness
-#     is hardware-gated (tools/experiments/pack16_ab.py — interpret-mode
-#     kernel runs are prohibitively slow on CPU, see BASELINE round-4
-#     "CPU kernel-parity smoke"), while unpack16_rows itself is
-#     unit-tested numpy-vs-jnp in the default suite.
-run "pack16-off" env JPEG_TPU_PACK16=0 python -m pytest \
-    tests/test_stream_bits.py tests/test_pallas_decode.py -x -q "$@"
-
-# 8e. Span classes forced (class collapse became the default in round 5)
-#     — keeps the per-class packing/partition path green.
-run "collapse-off" env JPEG_TPU_CLASS_COLLAPSE=0 python -m pytest \
-    tests/test_stream_bits.py tests/test_pallas_decode.py \
-    tests/test_stripe_bits.py -x -q "$@"
-
-# 9. Legacy wire configurations (the default wire moved to "delta" in
-#    round 4; the words/slots paths must stay green — production degrades
-#    onto them per scan).
-run "wire-words-packed" env JPEG_TPU_WIRE=words-packed python -m pytest \
-    tests/test_stream_bits.py tests/test_pallas_decode.py -x -q "$@"
-run "wire-slots" env JPEG_TPU_WIRE=slots python -m pytest \
-    tests/test_stream_bits.py -x -q "$@"
-
-# 10. Benchmark smoke (the reference CI *runs* its benches,
+# 9. Benchmark smoke (the reference CI *runs* its benches,
 #    /root/reference/.github/workflows/rust.yml:36-40): a perf-path import
 #    or staging regression must fail the gate, not the next bench run.
-#    --smoke decodes each bench input once on the CPU tier.
+#    --smoke decodes each bench input once on the CPU.
 run "benchsmoke" env PYTHONPATH= JAX_PLATFORMS=cpu \
     python tools/benchsuite.py --smoke
 

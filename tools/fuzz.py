@@ -91,7 +91,7 @@ def compare_with_pil(our_pixels: bytes, decoder, data: bytes):
     """Returns None if incomparable, True if within ±3, else a message."""
     import numpy as np
 
-    from jpeg_decoder_tpu import CodingProcess, PixelFormat
+    from jpeg_decoder_jax import CodingProcess, PixelFormat
 
     info = decoder.info()
     if info is None or info.coding_process == CodingProcess.LOSSLESS:
@@ -115,7 +115,7 @@ def compare_with_pil(our_pixels: bytes, decoder, data: bytes):
 
 
 def run(iterations: int = 500, seed: int = 0, timeout_s: int = 60) -> int:
-    from jpeg_decoder_tpu import Decoder, JpegError
+    from jpeg_decoder_jax import Decoder, JpegError
 
     class _Hang(Exception):
         pass
@@ -140,11 +140,11 @@ def run(iterations: int = 500, seed: int = 0, timeout_s: int = 60) -> int:
         return i + 2 + seg_len
 
     def decode(data: bytes, disable_native: bool):
-        import jpeg_decoder_tpu.entropy.native as native_mod
+        import jpeg_decoder_jax.entropy.native as native_mod
         if disable_native:
-            os.environ["JPEG_TPU_DISABLE_NATIVE"] = "1"
+            os.environ["JPEG_JAX_DISABLE_NATIVE"] = "1"
         else:
-            os.environ.pop("JPEG_TPU_DISABLE_NATIVE", None)
+            os.environ.pop("JPEG_JAX_DISABLE_NATIVE", None)
         native_mod.reset_native_cache()
         d = Decoder(data)
         # Dimension-field mutations produce legitimate 100+ Mpix images whose
@@ -284,8 +284,8 @@ def run_device(iterations: int = 300, seed: int = 0,
 
     jax.config.update("jax_platforms", "cpu")
 
-    from jpeg_decoder_tpu import Decoder, JpegError
-    from jpeg_decoder_tpu.entropy.device_scan import (
+    from jpeg_decoder_jax import Decoder, JpegError
+    from jpeg_decoder_jax.entropy.device_scan import (
         PrescanFallback,
         decode_anchored_device,
         prescan_baseline,
@@ -405,7 +405,7 @@ def run_device(iterations: int = 300, seed: int = 0,
 
 
 class _LineCoverage:
-    """Line-coverage collector over jpeg_decoder_tpu's Python layers via
+    """Line-coverage collector over jpeg_decoder_jax's Python layers via
     sys.monitoring (PEP 669). The callback DISABLEs each (code, line) event
     after its first firing, so after warm-up only genuinely NEW lines fire —
     per-run overhead is near zero and "events fired this run" IS the
@@ -473,17 +473,17 @@ def run_guided(iterations: int = 2000, seed: int = 0,
     budget with the flat random scheduler first and writes both coverage
     curves to `out_json` — the measured guided-vs-random comparison.
 
-    The Python oracle is forced (JPEG_TPU_DISABLE_NATIVE) so the feedback
+    The Python oracle is forced (JPEG_JAX_DISABLE_NATIVE) so the feedback
     signal sees the decode layers; crash/differential verification of any
     corpus this mode grows stays with run()/run_device()."""
     import json
 
-    os.environ["JPEG_TPU_DISABLE_NATIVE"] = "1"
-    import jpeg_decoder_tpu.entropy.native as native_mod
+    os.environ["JPEG_JAX_DISABLE_NATIVE"] = "1"
+    import jpeg_decoder_jax.entropy.native as native_mod
     native_mod.reset_native_cache()
-    from jpeg_decoder_tpu import Decoder, JpegError
+    from jpeg_decoder_jax import Decoder, JpegError
 
-    import jpeg_decoder_tpu as pkg
+    import jpeg_decoder_jax as pkg
     prefix = os.path.dirname(os.path.abspath(pkg.__file__))
 
     class _Hang(Exception):
@@ -564,7 +564,7 @@ def run_guided(iterations: int = 2000, seed: int = 0,
     guided_curve, grown = phase(guided=True)
     guided_total = len(cov.total)
     cov.close()
-    os.environ.pop("JPEG_TPU_DISABLE_NATIVE", None)
+    os.environ.pop("JPEG_JAX_DISABLE_NATIVE", None)
     native_mod.reset_native_cache()
 
     result = {

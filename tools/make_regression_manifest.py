@@ -18,7 +18,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 
 from conftest import crashtest_files, reftest_files  # noqa: E402
 
-from jpeg_decoder_tpu import Decoder, JpegError  # noqa: E402
+from jpeg_decoder_jax import Decoder, JpegError  # noqa: E402
 
 
 def outcome(path) -> str:

@@ -11,7 +11,7 @@ What runs (each bit-exact against a process-local oracle):
      — the host->global-batch seam where multi-host decode actually breaks.
   2. SP striped decode over a global "stripe"=8 axis: the 1-row V2-upsampling
      halo ppermute (parallel/stripes.py) crosses the PROCESS boundary, i.e.
-     rides the gloo transport (the DCN analog), not shared memory.
+     rides the gloo transport (the cross-host analog), not shared memory.
   3. Real JPEGs through the mesh-batched prefix pipeline
      (models/stream.py _compiled_prefix_pipeline_batched): each rank runs the
      full host staging (parse + entropy + prefix pack) for its rows only,
@@ -19,8 +19,8 @@ What runs (each bit-exact against a process-local oracle):
      against a single-device decode of the same rows.
 
 The reference has no distributed story at all (SURVEY.md §4: its closest
-analog is the rayon limited-threadpool suite); BASELINE.json's >=80%
-1-chip->N-hosts scaling target demands this path exist and be correct.
+analog is the rayon limited-threadpool suite); multi-host decode needs this
+path to exist and be correct.
 
 Usage:
   python tools/multiproc_mesh.py                 # parent: spawn 2 ranks
@@ -95,8 +95,8 @@ def child(rank: int, port: int) -> None:
     assert len(jax.local_devices()) == LOCAL_DEVICES
 
     import __graft_entry__ as ge
-    from jpeg_decoder_tpu.ops.pipeline import _reconstruct
-    from jpeg_decoder_tpu.parallel.mesh import make_mesh
+    from jpeg_decoder_jax.ops.pipeline import _reconstruct
+    from jpeg_decoder_jax.parallel.mesh import make_mesh
 
     # ---- 1. DP over "data"=8, process-local staging --------------------
     mesh = make_mesh({"data": N_PROCS * LOCAL_DEVICES})
@@ -112,7 +112,7 @@ def child(rank: int, port: int) -> None:
     g_qts = tuple(
         _assemble(repl, q.shape, lambda idx, q=q: q[idx]) for q in qts)
 
-    from jpeg_decoder_tpu.parallel.batch import make_batch_pipeline
+    from jpeg_decoder_jax.parallel.batch import make_batch_pipeline
     fn = make_batch_pipeline(geometry, mesh, "data")
     out = fn(g_stores, g_qts)
 
@@ -124,7 +124,7 @@ def child(rank: int, port: int) -> None:
     print(f"[rank {rank}] 1. DP batch over 2 processes: bit-exact", flush=True)
 
     # ---- 2. SP stripes over "stripe"=8: halo crosses the process seam --
-    from jpeg_decoder_tpu.parallel.stripes import make_stripe_pipeline
+    from jpeg_decoder_jax.parallel.stripes import make_stripe_pipeline
     sp = N_PROCS * LOCAL_DEVICES
     smesh = make_mesh({"stripe": sp})
     sgeo = ge._example_geometry(mcu_rows=2 * sp)
@@ -165,7 +165,7 @@ def child(rank: int, port: int) -> None:
     # ---- 3. Real JPEGs, process-local host staging -> sharded pipeline -
     from PIL import Image
     import io
-    from jpeg_decoder_tpu.models.stream import (
+    from jpeg_decoder_jax.models.stream import (
         _bucket, _compiled_prefix_pipeline_batched, stage_host)
 
     base = Image.open("/root/reference/tests/reftest/images/rgb.jpg")
@@ -240,8 +240,8 @@ def child(rank: int, port: int) -> None:
     # 4. Lossless (SOF3) over the same global data axis: each rank stages
     #    the uint16 difference planes for its rows only; the device runs the
     #    predictor reconstruction, sharded (round-3 StagedLossless path).
-    from jpeg_decoder_tpu import Decoder
-    from jpeg_decoder_tpu.models.stream import (_compiled_lossless_pipeline,
+    from jpeg_decoder_jax import Decoder
+    from jpeg_decoder_jax.models.stream import (_compiled_lossless_pipeline,
                                                 stage_host_lossless)
     ll_path = ("/root/reference/tests/reftest/images/lossless/1/"
                "jpeg_lossless_sel1.jpg")

@@ -2,12 +2,11 @@
 """Mesh scaling harness: decode throughput vs device count.
 
 Measures the batch-DP pipeline over 1/2/4/... device meshes and reports
-scaling efficiency — the harness behind BASELINE.json's ">= 80% 1 chip -> N
-hosts" target. On real multi-chip slices the same code runs unchanged (the
-mesh spans all hosts under jax.distributed); in this single-chip environment
-it runs on the virtual CPU mesh, which validates sharding correctness and
-collective placement but NOT real scaling (virtual devices share host cores —
-numbers here are for plumbing, not headline efficiency).
+scaling efficiency. On several cards the same code runs unchanged (the mesh
+spans all devices, or all hosts under jax.distributed); on the virtual CPU
+mesh it validates sharding correctness and collective placement but NOT real
+scaling (virtual devices share host cores — numbers there are for plumbing,
+not efficiency).
 
 Usage: XLA_FLAGS=--xla_force_host_platform_device_count=8 \
        python tools/scaling_bench.py [--image PATH] [--batch-per-device 4]
@@ -37,9 +36,9 @@ def main() -> None:
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
 
-    from jpeg_decoder_tpu.decoder import Decoder
-    from jpeg_decoder_tpu.ops.pipeline import geometry_from_frame
-    from jpeg_decoder_tpu.parallel import decode_batch_sharded, make_mesh
+    from jpeg_decoder_jax.decoder import Decoder
+    from jpeg_decoder_jax.ops.pipeline import geometry_from_frame
+    from jpeg_decoder_jax.parallel import decode_batch_sharded, make_mesh
 
     data = open(args.image, "rb").read()
     d = Decoder(data, backend="numpy")
@@ -101,9 +100,9 @@ def main() -> None:
     # t1/tN ~= 100% on the virtual mesh means the stripe partition (DC
     # carry all_gathers + halo ppermutes + duplicate straddler chunks)
     # costs nothing structural and real-chip speedup rides the hardware.
-    from jpeg_decoder_tpu.models.stream import (DeviceStreamDecoder,
+    from jpeg_decoder_jax.models.stream import (DeviceStreamDecoder,
                                                 stage_host_bits)
-    from jpeg_decoder_tpu.parallel.stripe_bits import decode_bits_striped
+    from jpeg_decoder_jax.parallel.stripe_bits import decode_bits_striped
     st = stage_host_bits(data)
     single = DeviceStreamDecoder(host_threads=1, interchange="bits")
     print("-- stripe-bits sharding-overhead (one image, entropy on-mesh) --")
